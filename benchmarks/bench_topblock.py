@@ -10,16 +10,17 @@ Two graph forms:
   * host-fed: StreamSource(recorded IQ planes) -> chain -> vector_sink —
     the README quick-start shape; includes real host->device feeding.
 
-Run: nohup python -u benchmarks/bench_topblock.py > /tmp/bench_topblock.log 2>&1 &
+Run: python benchmarks/bench_topblock.py   (needs a GPU)
 """
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-from benchmarks.bench_util import setup_cache, sync, time_fn_carry
+from benchmarks.bench_util import card_info, require_gpu, time_fn_carry
 
 
 def bench_bare(n):
@@ -77,10 +78,10 @@ def bench_topblock_device(n_per_step, steps=10, source="cycle"):
     n_in = cg.n_out[src][0]
     # warmup (compile + first dispatch)
     tb.run(n_steps=2)
-    sync(tb.state)
+    jax.block_until_ready(tb.state)
     t0 = time.perf_counter()
     tb.run(n_steps=steps)
-    sync(tb.state)
+    jax.block_until_ready(tb.state)
     dt = (time.perf_counter() - t0) / steps
     return {"probe": f"wfm_topblock_device_{source}_n{n_in}",
             "dt_ms": round(dt * 1e3, 3),
@@ -102,17 +103,18 @@ def bench_topblock_fed(n_per_step, steps=10):
     src = cg.fed_sources[0]
     n_in = cg.n_out[src][0]
     tb.run(n_steps=2)
-    sync(tb.state)
+    jax.block_until_ready(tb.state)
     t0 = time.perf_counter()
     tb.run(n_steps=steps)
-    sync(tb.state)
+    jax.block_until_ready(tb.state)
     dt = (time.perf_counter() - t0) / steps
     return {"probe": f"wfm_topblock_fed_n{n_in}", "dt_ms": round(dt * 1e3, 3),
             "msps": round(n_in / dt / 1e6, 1)}
 
 
 def main():
-    setup_cache()
+    require_gpu()
+    print(card_info(), flush=True)
     for fn, kw in [
         (bench_bare, dict(n=1 << 24)),
         (bench_topblock_device, dict(n_per_step=1 << 24, steps=40)),

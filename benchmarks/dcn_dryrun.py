@@ -11,9 +11,9 @@ cross-shard-closed deemph IIR) on its own 4-device mesh -> results file.
 Both processes carry state across N_STEPS chunks; the parent then runs the
 same chain single-process (models/wfm.make_wfm_step) and asserts the
 distributed audio matches within f32 tolerance, and that tag offsets
-survived the hop. Writes DCN_r03.json.
+survived the hop. Writes the result as JSON to --out.
 
-Run: python benchmarks/dcn_dryrun.py          (parent / process A)
+Run: python benchmarks/dcn_dryrun.py --out R.json   (parent / process A)
      python benchmarks/dcn_dryrun.py --role recv --port P --out F  (child)
 """
 from __future__ import annotations
@@ -133,7 +133,7 @@ def run_recv(port: int, out_path: str):
                    "tags": tags_seen}, f)
 
 
-def run_send():
+def run_send(out_path: str):
     mesh = _mesh()
     init, step = make_front(mesh)
     rng = np.random.default_rng(0)
@@ -146,7 +146,7 @@ def run_send():
     planes = np.stack([iq.real, iq.imag], -1).astype(np.float32)
 
     server = transport.StreamServer()
-    out_json = "/tmp/dcn_recv_result.json"
+    out_json = out_path + ".recv.json"
     child = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--role", "recv",
          "--port", str(server.port), "--out", out_json],
@@ -205,7 +205,7 @@ def run_send():
         "tags_survived": ok_tags,
         "sender_wall_s": round(wall, 3),
     }
-    with open("/root/repo/DCN_r03.json", "w") as f:
+    with open(out_path, "w") as f:
         json.dump(artifact, f, indent=1)
     print(json.dumps(artifact))
     assert artifact["ok"], artifact
@@ -216,9 +216,9 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--role", default="send")
     ap.add_argument("--port", type=int, default=0)
-    ap.add_argument("--out", default="/tmp/dcn_recv_result.json")
+    ap.add_argument("--out", required=True, help="result JSON path")
     args = ap.parse_args()
     if args.role == "recv":
         run_recv(args.port, args.out)
     else:
-        run_send()
+        run_send(args.out)

@@ -9,36 +9,22 @@ FLOPs/sample/stage), measured at increasing parallelism. Here the axes are:
   * WBFM chain, TIME-sharded: ppermute halo exchange + cross-shard IIR.
   * 64-ch channelizer, CHAN-sharded: psum_scatter DFT reduction.
 
-What can be measured where (one real chip only — SURVEY.md §4 "multi-node
-without a cluster"):
-  * `cpu` phase: virtual 8-device CPU mesh — CORRECTNESS at D=1/2/4/8
-    (sharded output == unsharded, multi-step with carried state) and
-    measured per-step comm volume (bytes over the mesh axis per step).
-  * `tpu` phase: absolute 1-chip throughput of each workload (the D=1
-    column of the reference's .dat files).
-  * `combine`: SCALING_r02.json with per-shard-count columns — measured
-    1-chip Msps, per-step comm bytes, and the ICI-model efficiency
-    prediction  eff(D) = t_comp / (t_comp + comm_bytes / W_ici)  at fixed
-    per-chip work (weak scaling), W_ici = 45 GB/s/link (TPU v5e one-way
-    per-link ICI bandwidth, jax-ml.github.io/scaling-book figures).
+The harness runs on a virtual 8-device CPU mesh: CORRECTNESS at D=1/2/4/8
+(sharded output == unsharded, multi-step with carried state) and the
+per-step communication volume (bytes over the mesh axis per step), computed
+from the collectives each sharded step issues. It measures no time.
 
 Usage:
-  python benchmarks/scaling.py cpu
-  nohup python -u benchmarks/scaling.py tpu &
-  python benchmarks/scaling.py combine
+  python benchmarks/scaling.py [--out rows.json]
 """
+import argparse
 import json
+import os
 import sys
-import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-
-CPU_OUT = "/tmp/scaling_cpu.json"
-TPU_OUT = "/tmp/scaling_tpu.json"
-FINAL = "/root/repo/SCALING_r05.json"
-W_ICI = 45e9  # bytes/s one-way per v5e ICI link
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +70,7 @@ def synthetic_sharded(mesh, npipes, nstages, ntaps=256):
 # cpu phase: correctness on the virtual mesh + comm accounting
 # ---------------------------------------------------------------------------
 
-def run_cpu():
-    import os
+def run_cpu(out=None):
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8"
                                ).strip()
@@ -190,118 +175,12 @@ def run_cpu():
                      "n_per_step": npipes * np_in})
         print(rows[-1], flush=True)
 
-    with open(CPU_OUT, "w") as f:
-        json.dump(rows, f, indent=1)
-    print("wrote", CPU_OUT)
-
-
-# ---------------------------------------------------------------------------
-# tpu phase: absolute single-chip throughput (the D=1 columns)
-# ---------------------------------------------------------------------------
-
-def run_tpu():
-    from benchmarks.bench_util import setup_cache, time_fn_carry
-    setup_cache()
-    import jax
-    import jax.numpy as jnp
-    from jax import lax
-    rows = []
-
-    # mp-sched synthetic: 16 pipes x 4 stages x 256 taps
-    npipes, nstages, ntaps = 16, 4, 256
-    init, step, taps = make_synthetic(npipes, nstages, ntaps)
-    n = 1 << 20  # per pipe
-    x = jax.jit(lambda: jax.random.normal(jax.random.PRNGKey(0),
-                                          (npipes, n), jnp.float32))()
-    st = jax.jit(init)()
-    f = jax.jit(step)
-    dt = time_fn_carry(f, st, x, iters=10)
-    samples = npipes * n
-    gflops = samples * nstages * ntaps * 2 / dt / 1e9
-    rows.append({"workload": "mp_sched_synthetic_16x4", "shards": 1,
-                 "msps": round(samples / dt / 1e6, 1),
-                 "gflops": round(gflops, 1),
-                 "sec_per_step": dt,
-                 "note": "reference saturated at 14.4 GFLOPS on its best "
-                         "CPU (BASELINE.md)"})
-    print(rows[-1], flush=True)
-
-    # WBFM single chip (D=1 column of the time-sharded workload) — the
-    # FUSED Pallas front end, the same kernel the sharded step runs
-    # (models/wfm_sharded.make_wfm_sharded_fused; VERDICT r04 weak #6)
-    from gnuradio_tpu.models.wfm import make_wfm_step_fused
-    init_w, step_w, mult = make_wfm_step_fused(1e6, 250e3, 50e3, R=256,
-                                               layout="planes",
-                                               stage2="split")
-    nw = 1 << 24
-    runw = jax.jit(step_w)
-    iq = jax.jit(lambda: 0.5 * jax.random.normal(
-        jax.random.PRNGKey(1), (2, nw), jnp.float32))()
-    stw = jax.jit(init_w)()
-    dtw = time_fn_carry(runw, stw, iq, iters=10)
-    rows.append({"workload": "wbfm_time_sharded", "shards": 1,
-                 "msps": round(nw / dtw / 1e6, 1), "sec_per_step": dtw})
-    print(rows[-1], flush=True)
-
-    # channelizer single chip
-    from gnuradio_tpu.models.channelize import make_channelizer_step
-    init_c, step_c, meta = make_channelizer_step(6_400_000.0, 64, 0.9375)
-    ncs = ((1 << 22) // meta["in_multiple"]) * meta["in_multiple"]
-
-    @jax.jit
-    def runc(state, iq):
-        return step_c(state, lax.complex(iq[:, 0], iq[:, 1]))
-
-    iqc = jax.jit(lambda: 0.5 * jax.random.normal(
-        jax.random.PRNGKey(2), (ncs, 2), jnp.float32))()
-    stc = jax.jit(init_c)()
-    dtc = time_fn_carry(runc, stc, iqc, iters=10)
-    rows.append({"workload": "channelizer_chan_sharded", "shards": 1,
-                 "msps": round(ncs / dtc / 1e6, 1), "sec_per_step": dtc,
-                 "n_per_step": ncs})
-    print(rows[-1], flush=True)
-
-    with open(TPU_OUT, "w") as f:
-        json.dump(rows, f, indent=1)
-    print("wrote", TPU_OUT)
-
-
-# ---------------------------------------------------------------------------
-# combine: efficiency model columns
-# ---------------------------------------------------------------------------
-
-def run_combine():
-    cpu = json.load(open(CPU_OUT))
-    tpu = json.load(open(TPU_OUT))
-    t1 = {r["workload"]: r for r in tpu}
-    out = {"method": (
-        "Weak scaling model: per-chip work fixed at the measured 1-chip "
-        "step; eff(D) = t_comp / (t_comp + comm_bytes(D)/W_ici), "
-        "W_ici = 45 GB/s/link (v5e one-way). comm_bytes measured from the "
-        "collectives each sharded step issues (verified correct on the "
-        "virtual 8-device mesh, 'correct' column)."),
-        "rows": []}
-    for r in cpu:
-        w = r["workload"]
-        base = t1.get(w)
-        row = dict(r)
-        if base:
-            t_comp = base["sec_per_step"]
-            # scale comm to the per-chip workload size used on TPU
-            scale = (base.get("n_per_step", r["n_per_step"])
-                     / r["n_per_step"])
-            comm = r["comm_bytes_per_step"] * scale
-            eff = t_comp / (t_comp + comm / W_ICI)
-            row["tpu_1chip_msps"] = base["msps"]
-            row["predicted_efficiency_pct"] = round(100 * eff, 2)
-            row["predicted_agg_msps"] = round(base["msps"] * r["shards"] *
-                                              eff, 1)
-        out["rows"].append(row)
-    with open(FINAL, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps(out, indent=1))
-    print("wrote", FINAL)
+    if out:
+        with open(out, "w") as f:
+            json.dump(rows, f, indent=1)
 
 
 if __name__ == "__main__":
-    {"cpu": run_cpu, "tpu": run_tpu, "combine": run_combine}[sys.argv[1]]()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", help="write the rows to this JSON file")
+    run_cpu(ap.parse_args().out)

@@ -1,8 +1,8 @@
 // gnuradio_tpu native host runtime.
 //
-// The TPU compute path is jitted XLA; this library is the native runtime
+// The device compute path is jitted XLA; this library is the native runtime
 // AROUND it — the analog of the reference's C++ runtime pieces that remain
-// host-side work in a TPU design:
+// host-side work in an accelerator design:
 //
 //   * vm_ringbuf: single-writer/single-reader circular buffer whose physical
 //     pages are mapped TWICE back-to-back in virtual memory, so every

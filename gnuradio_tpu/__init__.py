@@ -1,8 +1,8 @@
-"""gnuradio_tpu — a TPU-native software-radio framework.
+"""gnuradio_tpu — an accelerator-native software-radio framework.
 
 A from-scratch re-design of GNU Radio's capabilities (reference: GNU Radio
-3.9 snapshot) for TPU hardware: flowgraphs are compiler inputs traced into
-single jitted XLA programs, DSP blocks are MXU/VPU kernels, streams shard
+3.9 snapshot) for accelerators through JAX/XLA: flowgraphs are compiler inputs traced into
+single jitted XLA programs, DSP blocks are matmul and elementwise kernels, streams shard
 across device meshes with halo exchange replacing scheduler history buffers.
 
     from gnuradio_tpu import gr, blocks, filter, analog, fft

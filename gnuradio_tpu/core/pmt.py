@@ -3,7 +3,7 @@
 Reference parity: gnuradio-runtime/lib/pmt/ (pmt.cc, pmt_serialize.cc) — a
 lisp-style immutable value system (bool, symbol, numbers, pairs, tuples,
 dicts, uniform numeric vectors) used for stream tags, messages/PDUs, and the
-ZMQ wire format. The TPU build keeps metadata on the HOST (device arrays
+ZMQ wire format. This build keeps metadata on the HOST (device arrays
 carry only samples), so "PMT" here is plain Python values plus a
 self-describing binary codec with the same type coverage:
 

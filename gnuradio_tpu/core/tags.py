@@ -9,7 +9,7 @@ Reference parity:
       ALL_TO_ALL / ONE_TO_ONE / DONT; offsets scaled by the block's relative
       rate with EXACT rational arithmetic when set (mpq, :139-153)
 
-TPU design: samples live on device inside one fused XLA step; tags ride on
+Design: samples live on device inside one fused XLA step; tags ride on
 the HOST in per-edge lists, advanced once per step by the runtime using the
 same exact `fractions.Fraction` rate algebra the graph compiler solved.
 Offset scaling is integer/rational host math (SURVEY.md App. C: "use int64 +

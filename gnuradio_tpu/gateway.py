@@ -6,7 +6,7 @@ let users implement work() in Python while the C++ runtime drives it
 through the block_gateway trampoline
 (gnuradio-runtime/include/gnuradio/block_gateway.h:47-68).
 
-TPU design: the trampoline here is `jax.pure_callback` — the user's NumPy
+Design: the trampoline here is `jax.pure_callback` — the user's NumPy
 work() executes on the HOST inside the traced step function, with static
 shapes supplied by the graph compiler (so the rest of the chain stays one
 fused XLA program around the callback). Like the reference's Python blocks,

@@ -106,66 +106,3 @@ def make_channelizer_step(fs: float = 6_400_000.0, nchans: int = 64,
             "out_rate": ch_rate * (resample_rate or 1.0)}
     return init_state, step, meta
 
-
-def make_channelizer_step_fused(fs: float = 6_400_000.0, nchans: int = 64,
-                                resample_rate: float | None = 0.9375,
-                                nfilts: int = 32, TB: int = 512,
-                                interpret: bool | None = None):
-    """Round-4 fused form of config #2: the polyphase arm bank + 64-pt DFT
-    run as ONE Pallas kernel in the natural (T, M) commutator layout
-    (kernels/pfb_pallas.py — arm conv is a sublane shifted-MAC, DFT one
-    MXU matmul; the unfused chain pays 3+ HBM materialization passes), and
-    the per-channel arb resampler consumes the (T, C) output with flat
-    shifted-reshape frames (no transpose anywhere until the final (M, T)
-    API transpose).
-
-    step(state, iq[(n, 2) f32 planes]) -> (state, out[(M, T_out) c64]);
-    numerically matches make_channelizer_step (QA: tests/test_pfb_fused.py).
-    """
-    import jax
-    from jax import lax
-    from ..kernels.pfb_pallas import chan_fused_consts, pfb_channelize_fused
-    from ..ops.pfb import PfbArbResampler, PfbChannelizer
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    chan = PfbChannelizer(nchans, channelizer_taps(fs, nchans))
-    M, L = chan.M, chan.L
-    Hm, Er, Ei = chan_fused_consts(chan.arms, M)
-    ch_rate = fs / nchans
-    rs = None
-    if resample_rate is not None:
-        rs = PfbArbResampler(resample_rate,
-                             resampler_taps(ch_rate, resample_rate, nfilts),
-                             nfilts)
-    in_mult = nchans * (rs.Q if rs is not None else 1)
-    hist = L * M - 1
-
-    def init_state():
-        st = {"x": jnp.zeros((2, hist), jnp.float32)}
-        if rs is not None:
-            st["rs"] = jnp.zeros((2, rs.L, nchans), jnp.float32)
-        return st
-
-    def step(state, iq):
-        xr = jnp.concatenate([state["x"][0], iq[:, 0]])
-        xi = jnp.concatenate([state["x"][1], iq[:, 1]])
-        new_x = jnp.stack([xr[xr.shape[0] - hist:],
-                           xi[xi.shape[0] - hist:]])
-        yr, yi = pfb_channelize_fused(xr, xi, jnp.asarray(Hm),
-                                      jnp.asarray(Er), jnp.asarray(Ei),
-                                      M, L, TB, interpret)   # (T, C)
-        if rs is None:
-            return ({"x": new_x},
-                    lax.complex(yr.T, yi.T).astype(jnp.complex64))
-        ypr = jnp.concatenate([state["rs"][0], yr], axis=0)
-        ypi = jnp.concatenate([state["rs"][1], yi], axis=0)
-        new_rs = jnp.stack([ypr[ypr.shape[0] - rs.L:],
-                            ypi[ypi.shape[0] - rs.L:]])
-        orp, oip = rs.resample_batched_tc(ypr, ypi)          # (T_out, C)
-        out = lax.complex(orp.T, oip.T).astype(jnp.complex64)
-        return {"x": new_x, "rs": new_rs}, out
-
-    meta = {"in_multiple": in_mult, "nchans": nchans, "ch_rate": ch_rate,
-            "out_rate": ch_rate * (resample_rate or 1.0)}
-    return init_state, step, meta

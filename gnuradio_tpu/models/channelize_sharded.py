@@ -7,13 +7,13 @@ across the "chan" mesh axis. Each chip:
 
   1. builds its Mloc = M/D arm signals from the (replicated) input chunk —
      pure strided reshapes, no comm;
-  2. runs its arm FIRs (one batched MXU conv);
+  2. runs its arm FIRs (one batched matmul);
   3. computes every chip's channel contributions from its own arms as ONE
      DFT matmul  E[c, m_local] @ V_local  (the IFFT across arms becomes a
-     dense matmul because arms are distributed — M=64 keeps it MXU-sized);
+     dense matmul because arms are distributed);
   4. psum_scatter over "chan" sums the partial DFTs and leaves each chip
      exactly its own channel block — the ONLY bulk collective, moving
-     (D-1)/D of one chunk per step over ICI;
+     (D-1)/D of one chunk per step between devices;
   5. runs its channels' arb resamplers locally (batched gather + two dots).
 
 Reference: gr-filter/lib/pfb_channelizer_ccf_impl.cc (+ pfb_arb_resampler),
@@ -79,7 +79,7 @@ def make_channelizer_sharded(mesh: Mesh, fs: float = 6_400_000.0,
         d = lax.axis_index("chan")
         base = d * Mloc
         # owned arm signals u_m[k] = x[kM - m]: one reshape+transpose+flip
-        # relayout (strided slices are ~20x slower gathers on TPU)
+        # relayout instead of M strided slices
         from ..ops.pfb import _arm_rows
         U_all = _arm_rows(xp, M, L - 1 + T)                 # (M, L-1+T)
         U = lax.dynamic_slice_in_dim(U_all, base, Mloc, axis=0)
@@ -90,7 +90,7 @@ def make_channelizer_sharded(mesh: Mesh, fs: float = 6_400_000.0,
                                           axis=1)           # (M, Mloc)
         Wpart = E_cols @ V                                   # (M, T) complex
         # sum partials across chips, scatter channel blocks: chip d keeps
-        # channels [d*Mloc, (d+1)*Mloc) — the single bulk ICI collective
+        # channels [d*Mloc, (d+1)*Mloc) — the single bulk collective
         Wr = lax.psum_scatter(Wpart.real, "chan", scatter_dimension=0,
                               tiled=True)
         Wi = lax.psum_scatter(Wpart.imag, "chan", scatter_dimension=0,
@@ -122,7 +122,7 @@ def make_channelizer_sharded(mesh: Mesh, fs: float = 6_400_000.0,
         "mesh": mesh,
         "in_sharding": NamedSharding(mesh, P()),
         "out_sharding": NamedSharding(mesh, P("chan", None, None)),
-        # ICI accounting: psum_scatter moves (D-1)/D of an (M, T) complex
+        # comm accounting: psum_scatter moves (D-1)/D of an (M, T) complex
         # plane per step (2 x f32 planes)
         "comm_bytes_per_step": lambda n: 2 * 4 * n * (D - 1) / max(D, 1),
     }

@@ -68,9 +68,8 @@ def ofdm_rx_burst(x, nframes, fft_len=FFT_LEN, cp_len=CP_LEN,
     row0 = jnp.clip(start // 8, 0, K - 1)
     if K <= 64:
         # one-hot shifted accumulate instead of a per-burst dynamic_slice:
-        # under vmap the batched dynamic_slice lowers to a row gather
-        # (measured 6.4 ms/4096 bursts); K weighted static slices fuse
-        # into one elementwise pass (~1.7 ms).
+        # under vmap the batched dynamic_slice lowers to a row gather;
+        # K weighted static slices fuse into one elementwise pass.
         oh = (jnp.arange(K) == row0).astype(jnp.float32)
         seg2 = jnp.zeros((need_rows, 8), x.dtype)
         for k in range(K):
@@ -81,8 +80,7 @@ def ofdm_rx_burst(x, nframes, fft_len=FFT_LEN, cp_len=CP_LEN,
             x8, (row0, 0), (need_rows, 8)).reshape(-1)
     # fine-CFO rotation AFTER the slice with a factorized phase ramp:
     # e^{-jf(8 row0 + 80 m + i)} = s0 * A[m] * C[i] — ~92 sincos per burst
-    # instead of one per sample (the full-buffer rotate measured 4.5 ms
-    # at 4096x864).
+    # instead of one per sample (a full-buffer rotate).
     s0 = jnp.exp(-1j * fine * (8.0 * row0.astype(jnp.float32)))
     A = jnp.exp(-1j * fine * sym_len
                 * jnp.arange(need, dtype=jnp.float32))

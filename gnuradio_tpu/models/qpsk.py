@@ -101,14 +101,14 @@ def make_qpsk_rx(sps: int = 4, excess_bw: float = 0.35,
 
 def make_qpsk_rx_feedforward(sps: int = 4, excess_bw: float = 0.35,
                              block: int = 1024):
-    """TPU-first QPSK receiver: FEEDFORWARD synchronization — no per-sample
-    recurrences, so the whole chunk is one parallel program (the tracking-
-    loop form in make_qpsk_rx mirrors the reference pfb_clock_sync/costas
-    but its per-symbol lax.scan costs ~17 us/symbol on TPU; this design is
-    the speed-of-light alternative, >2 orders of magnitude faster, with the
-    same differential-decode BER contract).
+    """Data-parallel QPSK receiver: FEEDFORWARD synchronization — no
+    per-sample recurrences, so the whole chunk is one parallel program (the
+    tracking-loop form in make_qpsk_rx mirrors the reference
+    pfb_clock_sync/costas with one lax.scan step per symbol; this design is
+    the parallel alternative, with the same differential-decode BER
+    contract).
 
-      1. RRC matched filter (MXU banded matmul).
+      1. RRC matched filter (banded matmul).
       2. Oerder&Meyr square-timing estimation per `block` samples:
          tau_b = -sps/(2*pi) * angle( sum_n |y[n]|^2 e^{-j 2 pi n / sps} ) —
          fully parallel; phase-unwrapped across blocks, linearly
@@ -152,9 +152,9 @@ def make_qpsk_rx_feedforward(sps: int = 4, excess_bw: float = 0.35,
         tau_u = state["tau_prev"] + jnp.cumsum(dtau)      # continuous
         # -- symbol sampling at k*sps + tau(block), PHASE-DECOMPOSED:
         # sample index b*block + o_b + m*sps lives in polyphase column
-        # (o_b mod sps) at row shift o_b//sps. A flat y[i0] gather measured
-        # 158 ms; the r3 per-block dynamic_slice scan measured 35.9 ms
-        # (8192 sequential light iterations); this form is all static
+        # (o_b mod sps) at row shift o_b//sps. Instead of a flat y[i0]
+        # gather or a per-block dynamic_slice scan (8192 sequential light
+        # iterations), this form is all static
         # strided views: per-block COLUMN choice is a sps-way one-hot
         # broadcast-sum, per-block ROW shift a small one-hot accumulate
         # over shifted flat views — no gathers, no scan.
@@ -166,7 +166,7 @@ def make_qpsk_rx_feedforward(sps: int = 4, excess_bw: float = 0.35,
         # dynamic_slice re-centers every G blocks, so the one-hot window
         # only has to cover intra-group drift (G*block samples * SRO;
         # 100 ppm over G=32 blocks of 1024 is ~3.3 samples << RMAX*sps)
-        # plus estimator noise. The ng-row gather costs ~1.6 us/row.
+        # plus estimator noise.
         spb = block // sps
         o_b = jnp.floor(tau_u).astype(jnp.int32)
         frac_b = (tau_u - o_b.astype(jnp.float32)).astype(jnp.complex64)
@@ -213,8 +213,8 @@ def make_qpsk_rx_feedforward(sps: int = 4, excess_bw: float = 0.35,
         def polyphase_pick(shift_extra):
             """Symbol stream at per-block offset res (+shift_extra):
             1 fused column-select pass + (2R+1)-term within-block row
-            shift. (A flat 36-way one-hot over block-wide views measured
-            +88 ms — per-term full-base reads don't dedupe on TPU.)"""
+            shift, instead of a flat 36-way one-hot over block-wide
+            views whose per-term full-base reads do not dedupe."""
             off = res + shift_extra + RMAX * sps        # in [0, 2*RMAX*sps]
             col = jnp.mod(off, sps)                     # (nb,) column
             row = off // sps                            # (nb,) row shift
@@ -240,8 +240,8 @@ def make_qpsk_rx_feedforward(sps: int = 4, excess_bw: float = 0.35,
         dth = th_seq[1:] - th_seq[:-1]
         dth = dth - (jnp.pi / 2) * jnp.round(dth / (jnp.pi / 2))
         th_u = state["th_prev"] + jnp.cumsum(dth)
-        # per-BLOCK phasor broadcast (nsb sincos, not one per symbol —
-        # jnp.repeat + per-symbol exp measured 15.7 ms of the r3 step)
+        # per-BLOCK phasor broadcast (nsb sincos, not one per symbol via
+        # jnp.repeat + per-symbol exp)
         rot = jnp.exp(-1j * th_u)[:, None]                # (nsb, 1)
         corr = sym[: nsb * spb].reshape(nsb, spb) * rot
         # -- decide + differential decode (angle-domain, see _ANGLE_PTS).
@@ -273,7 +273,7 @@ def make_qpsk_rx_tracking_multichannel(nchan: int, sps: int = 4,
                                        excess_bw: float = 0.35,
                                        timing_bw: float = 2 * math.pi / 100,
                                        costas_bw: float = 2 * math.pi / 100):
-    """Closed-loop tracking receiver over N parallel channels — the TPU-first
+    """Closed-loop tracking receiver over N parallel channels — the data-parallel
     answer to the reference's per-symbol symbol_sync/costas hot loop
     (gr-digital/lib/symbol_sync_cc_impl.cc:389-470): channels ride the lane
     axis, one scan step per SYMBOL serves all channels

@@ -148,8 +148,8 @@ def make_wfm_step(samp_rate=1_000_000.0, quad_rate=250_000.0,
                       in_complex=False)
     # deemphasis one-pole as its truncated impulse response (exact < 1e-9;
     # ops/iir_core.first_order_fir_taps) — the associative_scan IIR costs
-    # log-depth HBM passes, the FIR is one MXU matmul. The block-graph path
-    # (wfm_rcv_graph) keeps the exact IIR form.
+    # log-depth passes over memory, the FIR is one matmul. The block-graph
+    # path (wfm_rcv_graph) keeps the exact IIR form.
     from .wfm_sharded import _deemph_coeffs
     from ..ops.iir_core import first_order_fir_taps
     b0, b1, r = _deemph_coeffs(audio_rate, tau)
@@ -171,69 +171,68 @@ def make_wfm_step(samp_rate=1_000_000.0, quad_rate=250_000.0,
 
 def make_wfm_step_fused(samp_rate=1_000_000.0, quad_rate=250_000.0,
                         audio_rate=50_000.0, center_freq=0.0,
-                        max_dev=75_000.0, tau=75e-6, interpret=False,
-                        R=32, layout="interleaved", stage2="folded"):
-    """Fully fused WBFM receiver: the channel-select FIR + rotator + FM
-    discriminator run as ONE Pallas kernel (kernels/wfm_fused_pallas.py —
-    the rotator collapses algebraically into a constant phasor), followed
-    by the audio FIR and deemphasis-as-truncated-FIR stages.
+                        max_dev=75_000.0, tau=75e-6, front="triton",
+                        interpret=False, layout="interleaved",
+                        stage2="split"):
+    """Production WBFM receiver: the channel-select FIR + rotator + FM
+    discriminator run as one front stage (kernels/wfm_front.py — the
+    rotator collapses algebraically into a constant phasor), followed by
+    the audio FIR and deemphasis-as-truncated-FIR stages.
+
+    front: "triton" (the Pallas kernel, which beats the plain form end to
+    end on an H100 — PERF.md; it needs a GPU, or `interpret=True` to run in
+    the Pallas interpreter for tests) or "xla" (plain jax, any backend).
 
     Input is PLANES, not complex: step(state, iq[(n, 2) f32]) -> (state,
-    audio[(n/decim,) f32]) — the kernel reads the I/Q planes directly, so
-    no complex-materialization pass exists anywhere in the chain.
-    Numerically equivalent to make_wfm_step (QA: tests/test_wfm_fused.py).
+    audio[(n/decim,) f32]) with layout="interleaved", or iq[(2, n) f32] with
+    layout="planes". Numerically equivalent to make_wfm_step (QA:
+    tests/test_wfm_fused.py).
     """
-    from ..kernels.wfm_fused_pallas import WfmFrontFused
+    from ..kernels.wfm_front import WfmFront
     from ..kernels.fir_xla import fir_apply
     from .wfm_sharded import _deemph_coeffs
     from ..ops.iir_core import first_order_fir_taps
 
     chan_decim = int(round(samp_rate / quad_rate))
     audio_decim = int(round(quad_rate / audio_rate))
-    front = WfmFrontFused(channel_taps(samp_rate, quad_rate), center_freq,
-                          samp_rate, chan_decim,
-                          quad_rate / (2 * math.pi * max_dev), R=R)
+    front_stage = WfmFront(channel_taps(samp_rate, quad_rate), center_freq,
+                           samp_rate, chan_decim,
+                           quad_rate / (2 * math.pi * max_dev))
     a_taps = np.asarray(wfm_taps(quad_rate, audio_rate), np.float64)
     b0, b1, r = _deemph_coeffs(audio_rate, tau)
     d_taps = np.asarray(first_order_fir_taps(b0, b1, r), np.float64)
-    # fold the audio-rate deemphasis FIR into the quad-rate audio LPF:
-    # deemph(decim5(a*d)) == decim5((a conv up5(deemph)) * d) — exact by
-    # linear-convolution associativity, one HBM pass instead of two
+    # stage2="folded": fold the audio-rate deemphasis FIR into the
+    # quad-rate audio LPF: deemph(decim5(a*d)) == decim5((a conv
+    # up5(deemph)) * d) — exact by linear-convolution associativity, one
+    # pass instead of two. stage2="split": keep the 215-tap audio LPF at
+    # quad rate and apply the deemphasis truncated-FIR at AUDIO rate —
+    # ~2.4x less contraction than the folded 775-tap quad-rate FIR.
     up = np.zeros(audio_decim * len(d_taps) - (audio_decim - 1))
     up[::audio_decim] = d_taps
     comb_taps = np.convolve(a_taps, up).astype(np.float32)
     T2 = len(comb_taps)
-    # stage2="split": keep the 215-tap audio LPF at quad rate and apply
-    # the deemphasis truncated-FIR at AUDIO rate instead — ~2.4x less MXU
-    # contraction than the folded 775-tap quad-rate FIR (the fold saves an
-    # HBM pass, the split saves contraction; which wins is measured —
-    # benchmarks/tpu_session5_r03.py).
     a32 = a_taps.astype(np.float32)
     d32 = d_taps.astype(np.float32)
     Ta, Td = len(a32), len(d32)
+    H = front_stage.history
 
     def init_state():
         if stage2 == "split":
-            return {"front": jnp.zeros((2, front.history), jnp.float32),
+            return {"front": jnp.zeros((2, H), jnp.float32),
                     "audio": jnp.zeros(Ta - 1, jnp.float32),
                     "deemph": jnp.zeros(Td - 1, jnp.float32)}
-        return {"front": jnp.zeros((2, front.history), jnp.float32),
+        return {"front": jnp.zeros((2, H), jnp.float32),
                 "audio": jnp.zeros(T2 - 1, jnp.float32)}
 
     def step(state, iq_planes):
-        """iq_planes: (n, 2) interleaved or (2, n) channel-major f32
-        (layout= at make time). Channel-major is the fast path — the
-        interleaved layout costs an extra relayout pass on TPU (minor
-        dim 2 wastes (8,128) tiles)."""
         if layout == "planes":
             xr_in, xi_in = iq_planes[0], iq_planes[1]
         else:
             xr_in, xi_in = iq_planes[:, 0], iq_planes[:, 1]
         xr = jnp.concatenate([state["front"][0], xr_in])
         xi = jnp.concatenate([state["front"][1], xi_in])
-        t0 = jnp.stack([xr[xr.shape[0] - front.history:],
-                        xi[xi.shape[0] - front.history:]])
-        y = front(xr, xi, interpret=interpret)        # quad-rate FM samples
+        t0 = jnp.stack([xr[xr.shape[0] - H:], xi[xi.shape[0] - H:]])
+        y = front_stage(xr, xi, impl=front, interpret=interpret)
         if stage2 == "split":
             yp = jnp.concatenate([state["audio"], y])
             t1 = yp[yp.shape[0] - (Ta - 1):]

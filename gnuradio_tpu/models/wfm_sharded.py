@@ -9,7 +9,7 @@ de-emphasis IIR — sequential per sample in the reference
 (gr-analog/python/analog/fm_emph.py one-pole) — is evaluated shard-locally
 with an associative scan, then closed across shards with the
 first_order_boundary fixup, so the whole receive step is ONE pjit'd program
-with only O(taps) ICI traffic per step.
+with only O(taps) traffic between devices per step.
 
 Host boundary carries float32 (N,2) interleaved IQ (complex never crosses
 host<->device — core/stream.py encoding).
@@ -136,35 +136,30 @@ def make_wfm_sharded(mesh: Mesh, samp_rate=1_000_000.0, quad_rate=250_000.0,
 def make_wfm_sharded_fused(mesh: Mesh, samp_rate=1_000_000.0,
                            quad_rate=250_000.0, audio_rate=50_000.0,
                            center_freq=0.0, max_dev=75_000.0, tau=75e-6,
-                           interpret: bool | None = None, R: int = 32):
-    """Time-sharded WBFM receiver running the PRODUCTION front end: the
-    fused Pallas channel-FIR + FM-discriminator kernel
-    (kernels/wfm_fused_pallas.WfmFrontFused, the single-chip flagship)
-    composed with ppermute halo exchange inside shard_map — the round-4
-    convergence of the scaling path with the fused kernels (VERDICT r03
-    weak #4). The rotator is algebraically eliminated (constant e^{-jwD}
-    phasor), so no fxpt phase carry exists; the front's history halo
-    (T-1+D samples per I/Q plane) rides ICI, and the de-emphasis one-pole
-    stays the exact cross-shard IIR closure (first_order_boundary).
+                           front: str = "triton", interpret: bool = False):
+    """Time-sharded WBFM receiver running the PRODUCTION front end
+    (kernels/wfm_front.WfmFront, the single-device flagship's front stage)
+    composed with ppermute halo exchange inside shard_map. The rotator is
+    algebraically eliminated (constant e^{-jwD} phasor), so no fxpt phase
+    carry exists; the front's history halo (T-1+D samples per I/Q plane)
+    moves between neighbouring devices, and the de-emphasis one-pole stays
+    the exact cross-shard IIR closure (first_order_boundary).
 
     step(state, iq_f32[(N, 2)]) -> (state, audio_f32[(N/decim,)]), with N
-    sharded along the "time" mesh axis. `interpret=None` auto-selects the
-    Pallas interpreter on non-TPU backends (virtual CPU meshes in QA /
-    dryrun_multichip).
+    sharded along the "time" mesh axis. `front`/`interpret` as in
+    models/wfm.make_wfm_step_fused.
     """
-    from ..kernels.wfm_fused_pallas import WfmFrontFused
+    from ..kernels.wfm_front import WfmFront
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     chan_decim = int(round(samp_rate / quad_rate))
     audio_decim = int(round(quad_rate / audio_rate))
-    front = WfmFrontFused(channel_taps(samp_rate, quad_rate), center_freq,
-                          samp_rate, chan_decim,
-                          quad_rate / (2 * math.pi * max_dev), R=R)
+    front_stage = WfmFront(channel_taps(samp_rate, quad_rate), center_freq,
+                           samp_rate, chan_decim,
+                           quad_rate / (2 * math.pi * max_dev))
     ataps = wfm_taps(quad_rate, audio_rate).astype(np.float32)
     b0, b1, r = _deemph_coeffs(audio_rate, tau)
     D = mesh.shape["time"]
-    H = front.history                      # T-1+D samples per plane
+    H = front_stage.history                # T-1+D samples per plane
 
     def init_state():
         return {
@@ -178,12 +173,12 @@ def make_wfm_sharded_fused(mesh: Mesh, samp_rate=1_000_000.0,
     from ..parallel.halo import left_halo, first_order_boundary
 
     def _local_step(state, iq):
-        # iq: (n_local, 2) f32 — split to planes once; the fused kernel
-        # reads planes directly (interleaved minor-dim-2 tiles terribly)
+        # iq: (n_local, 2) f32 — split to planes once; the front reads
+        # planes directly
         xr, xi = iq[:, 0], iq[:, 1]
         xrp, front_r = left_halo(xr, state["front_r"], "time")
         xip, front_i = left_halo(xi, state["front_i"], "time")
-        d = front(xrp, xip, interpret=interpret)   # quad-rate FM samples
+        d = front_stage(xrp, xip, impl=front, interpret=interpret)
         # -- audio decimating FIR ------------------------------------------
         dp, audio_tail = left_halo(d, state["audio_tail"], "time")
         a = fir_apply(dp, jnp.asarray(ataps), audio_decim)

@@ -13,7 +13,7 @@ fixed-point FLOAT/FMULT format. NOT bit-exact with the CCITT code
 ADPCM whose encoder and decoder track exactly (same state recursions), QA'd
 by roundtrip SNR and bit-rate ordering.
 
-TPU mapping: the per-sample feedback (quantizer scale and predictor adapt
+Mapping: the per-sample feedback (quantizer scale and predictor adapt
 on the quantized output) is inherently sequential -> lax.scan; at vocoder
 rates (8 kHz) this costs microseconds per second of speech.
 """

@@ -20,7 +20,7 @@ Reference parity:
   agc3_cc: block-average fast-attack AGC.
   random_uniform_source, fastnoise_source.
 
-TPU design: PLLs are true per-sample feedback -> lax.scan (symbol/audio
+Design: PLLs are true per-sample feedback -> lax.scan (symbol/audio
 rates). Squelch power estimation is a first-order linear recurrence ->
 parallel associative scan; gates are elementwise selects.
 """

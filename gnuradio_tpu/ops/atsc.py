@@ -1,6 +1,6 @@
 """gr-dtv ATSC 8-VSB: full A/53 transmit chain + symbol-domain receive.
 
-Reference behavior (reimplemented TPU-first, NOT copied):
+Reference behavior (reimplemented, NOT copied):
   gr-dtv/lib/atsc/atsc_randomizer_impl.cc, atsc_randomize.h — 16-bit LFSR
       (feedback mask 0xa638, preload 0x018f), one clock per byte, output
       byte assembled from 8 fixed state bits; reset at the first regular
@@ -37,12 +37,12 @@ Reference behavior (reimplemented TPU-first, NOT copied):
   gr-dtv/lib/atsc/atsc_deinterleaver_impl.cc, atsc_derandomizer_impl.cc,
       atsc_depad_impl.cc — inverses of the TX stages.
 
-TPU design: every mux/interleave in the chain is a fixed permutation with
+Design: every mux/interleave in the chain is a fixed permutation with
 period one field (or one 12-segment group), precomputed once in host NumPy
 and applied as a gather/scatter. The only sequential parts are the 12
 trellis encoder state machines — ONE lax.scan of 828 steps per group with a
 12-lane vector state (bitwise updates, no table lookups) — and the Viterbi
-ACS scan (8 states on the VPU lanes, 12 coders batched via vmap).
+ACS scan (8 states on vector lanes, 12 coders batched via vmap).
 """
 from __future__ import annotations
 

@@ -8,11 +8,11 @@ packed_to_unpacked, unpacked_to_packed, repack_bits_bb, rotator_cc, vco_f/c,
 transcendental, multiply_matrix, complex_to_magphase, magphase_to_complex,
 phase_shift, correctiq, stretch.
 
-TPU design notes: the reference implements hold/hysteresis/peak logic as
+Design notes: the reference implements hold/hysteresis/peak logic as
 per-sample state machines. Where the recurrence is a *carry-forward of the
 last event* (sample_and_hold, threshold hysteresis) we use the
 last-nonzero-index trick — a single `associative_scan(max)` over event
-indices — which runs parallel on the VPU instead of a sequential scan.
+indices — which runs elementwise in parallel instead of a sequential scan.
 True peak searches keep a lax.scan (they are data-dependent chases), but
 they sit at low rates in real graphs.
 """
@@ -177,7 +177,7 @@ def transcendental(fname, dtype=F):
 
 class MultiplyMatrix(Block):
     """N input streams -> M outputs via an MxN matrix
-    (gr::blocks::multiply_matrix) — a literal MXU op."""
+    (gr::blocks::multiply_matrix) — a literal matmul."""
 
     def __init__(self, A, dtype=F, name=None):
         super().__init__(name)

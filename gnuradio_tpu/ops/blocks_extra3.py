@@ -12,7 +12,7 @@ tagged_stream_align / tagged_stream_mux / tagged_stream_multiply_length
 (lib/tagged_stream_*.cc), tags_strobe, tsb_vector_sink, uchar_to_float,
 vector_insert, vector_map, bin_statistics_f.
 
-TPU design notes: tag-driven behavior splits across the two planes of this
+Design notes: tag-driven behavior splits across the two planes of this
 framework. Metadata-only blocks (align/mux/multiply_length, annotators) run
 entirely on the host tag sideband; *data* effects of tags (the gain of
 multiply_by_tag_value) are delivered to the jitted device step as a
@@ -58,7 +58,7 @@ def uchar_to_float():
 class VectorMap(Block):
     """vector_map: gather-remap vector items (gr::blocks::vector_map with a
     single in/out stream). `mapping` indexes the flattened input vector; on
-    TPU this is one fused gather on the VPU."""
+    device this is one fused gather."""
 
     def __init__(self, dtype, vlen_in: int, mapping, name=None):
         super().__init__(name)
@@ -270,7 +270,7 @@ class MultiplyByTagValue(Block):
     whenever a tag with `tag_key` arrives, starting at the tag's offset
     (gr-blocks/lib/multiply_by_tag_value_cc_impl.cc).
 
-    TPU mapping: the host derives a piecewise-constant gain vector for each
+    Mapping: the host derives a piecewise-constant gain vector for each
     step window from the (host-deterministic) tag sideband and feeds it to
     the jitted step; the device does one fused complex multiply."""
 

@@ -484,7 +484,7 @@ class BerBf(Block):
         a = inputs[0].astype(jnp.int32) & 0xFF
         b = inputs[1].astype(jnp.int32) & 0xFF
         x = a ^ b
-        # popcount via 8 shifts (VPU-friendly)
+        # popcount via 8 shifts (elementwise)
         cnt = sum(((x >> k) & 1) for k in range(8)).astype(jnp.float32)
         errs = state["errs"] + jnp.sum(cnt)
         bits = state["bits"] + jnp.float32(8.0) * a.shape[0]

@@ -33,7 +33,7 @@ class Regenerate(SyncBlock):
     regenerated pulses spaced `period` samples apart; a new trigger resets
     the cycle (lib/regenerate_bb_impl.cc work loop).
 
-    TPU-first form: the scalar countdown/regen_count recurrence depends
+    Data-parallel form: the scalar countdown/regen_count recurrence depends
     only on the distance to the MOST RECENT trigger, so it vectorizes as a
     cummax over trigger positions — out[i] = 1 iff dist_i == 0 or
     (dist_i % period == 0 and dist_i/period <= max_regen). The carried

@@ -1,6 +1,6 @@
 """gr-dtv CATV (ITU-T J.83 Annex B / ANSI-SCTE 07) 64QAM transmit chain.
 
-Reference behavior (reimplemented TPU-first, NOT copied):
+Reference behavior (reimplemented, NOT copied):
   gr-dtv/lib/catv/catv_transport_framing_enc_bb_impl.cc — per 188-byte TS
       packet: drop the 0x47 sync, append the parity checksum byte computed
       by the three-register LFSR construction (taps G=0xB1, B=0x45, result

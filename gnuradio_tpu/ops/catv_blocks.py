@@ -13,7 +13,7 @@ Reference stream contracts:
   dtv_catv_trellis_enc_bb            .../catv_trellis_enc_bb_impl.cc
       28 bits -> 5 six-bit QAM symbols (carried precoder/coder state)
 
-TPU design: the checksum and RS encoders are GF(2)-AFFINE maps of the
+Design: the checksum and RS encoders are GF(2)-AFFINE maps of the
 input bits (verified numerically in QA), so both run as ONE bit-matmul
 built by probing the scalar host reference (ops/catv.py) with unit
 impulses; the trellis coders are lax.scan kernels. 256QAM uses the

@@ -1,6 +1,6 @@
 """Continuous-phase modulation: phase responses + cpmmod/gmskmod hiers.
 
-Reference behavior (reimplemented TPU-first, NOT copied):
+Reference behavior (reimplemented, NOT copied):
   gr-analog/lib/cpm.cc — phase_response(type, sps, L, beta) tap generators:
       LREC (rect 1/(L*sps)), LRC (raised cosine), LSRC (spectral raised
       cosine main lobe, de-l'Hopital handling at |k| = Ls/(4 beta)), TFM

@@ -5,7 +5,7 @@ digital_loops.py.)
 
 Reference parity map (SURVEY.md §2.2 gr-digital row):
   constellation (lib/constellation.cc, 913 LoC)  -> Constellation (points +
-      vectorized nearest-point decision on the VPU; soft decisions via LLR)
+      vectorized nearest-point decision (elementwise); soft decisions via LLR)
   chunks_to_symbols_bc/sc (lib/chunks_to_symbols_impl.cc) -> ChunksToSymbols
   constellation_decoder_cb (lib/constellation_decoder_cb_impl.cc)
   diff_encoder_bb / diff_decoder_bb (lib/diff_{en,de}coder_bb_impl.cc)

@@ -17,7 +17,7 @@ Reference parity:
       moment estimators.
   meas_evm_cc: RMS error-vector magnitude vs nearest constellation point.
 
-TPU design: the DEscrambler's register contains only past *inputs*, so it is
+Design: the DEscrambler's register contains only past *inputs*, so it is
 a windowed XOR — fully parallel (same parity-matmul trick as the conv
 encoder). The scrambler's register feeds back, so it stays a lax.scan (bit
 rate). GLFSR sequences come from a scan over the register. Access-code

@@ -148,7 +148,7 @@ class GenericDemod(HierBlock):
         # chunk x^M CFO acquisition takes fll_band_edge's role, exactly as
         # the QA'd flagship receiver does (models/qpsk.make_qpsk_rx) — the
         # feedback FLL is a per-sample scan that adds phase noise on clean
-        # signals and costs ~17us/symbol on TPU
+        # signals and costs one sequential scan step per sample
         fll = CfoCorrector(order=int(constellation.rotational_symmetry))
         # matched-filter bank taps exactly as the QA'd flagship receiver
         # builds them (models/qpsk.make_qpsk_rx: rrc at sampling_freq=sps,

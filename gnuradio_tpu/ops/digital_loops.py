@@ -2,11 +2,11 @@
 recovery, PFB clock sync — the inherently sequential per-sample feedback
 recurrences (SURVEY.md §7 'hard parts' (a)).
 
-TPU design stance: these loops carry data-dependent state (phase, frequency,
+Design stance: these loops carry data-dependent state (phase, frequency,
 fractional delay) sample to sample, so they run as `lax.scan` over the
-chunk. That keeps them off the MXU, but they sit at SYMBOL rate (after the
+chunk. That keeps them off the matmul units, but they sit at SYMBOL rate (after the
 decimating matched filter), 1-2 orders of magnitude below the front-end
-sample rate where the MXU kernels do the heavy lifting — matching the
+sample rate where the matmul kernels do the heavy lifting — matching the
 reference, whose equivalent loops are scalar C++ too (control_loop.cc,
 clock_recovery_mm_cc_impl.cc). Batched/multi-channel use vmaps the scan.
 
@@ -285,7 +285,7 @@ class FllBandEdge(SyncBlock):
 def cfo_estimate_x4(x, order: int = 4):
     """Chunk-level M-PSK carrier-frequency estimator: the M-th power of an
     M-PSK signal has a spectral line at M*f_cfo; locate it with one FFT and
-    return the estimated CFO in rad/sample. TPU-native replacement for
+    return the estimated CFO in rad/sample. data-parallel replacement for
     streaming band-edge acquisition (one FFT per chunk instead of a
     per-sample loop); pull-in range +-pi/order rad/sample."""
     n = x.shape[0]
@@ -341,7 +341,7 @@ class PfbClockSync(Block):
     Timing state is a continuous fractional position advancing ~sps per
     output symbol; the fractional part selects one of nfilts arms (the
     reference's d_k/d_filtnum bookkeeping). Sequential scan over symbols;
-    each step is two L-tap dots (VPU) + dynamic window slice.
+    each step is two L-tap dots + dynamic window slice.
     """
 
     SLACK = 32

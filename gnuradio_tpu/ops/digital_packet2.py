@@ -23,8 +23,8 @@ Reference parity:
   modulate_vector         gr-digital/python/digital/modulation_utils +
                           lib/modulate_vector.cc helper.
 
-TPU design notes: PN correlation is a reshaped dot product (one matmul row
-per period) — MXU-friendly; framing/deframing is host-plane byte work (the
+Design notes: PN correlation is a reshaped dot product (one matmul row
+per period) — matmul-shaped; framing/deframing is host-plane byte work (the
 reference runs it at packet rate, ~10^-3 of sample rate); the kurtotic
 equalizer is a per-sample recurrence -> lax.scan like the LMS/CMA family in
 equalizers.py.
@@ -695,7 +695,7 @@ class KurtoticEqualizer(Block):
     cost (gr-digital/lib/kurtotic_equalizer_cc_impl.cc): tracks p = E|y|^2,
     m = E|y|^4 and q = E[y^2] with one-pole averages (alpha = gain) and
     updates taps with e = y·(|y|^2 − p) style error. Per-sample recurrence ->
-    lax.scan; the tap dot products inside the scan are short VPU reductions."""
+    lax.scan; the tap dot products inside the scan are short reductions."""
 
     def __init__(self, num_taps: int = 11, mu: float = 0.01, name=None):
         super().__init__(name)

@@ -1,7 +1,7 @@
 """gr-dtv DVB-S2: BBFRAME framing, BCH, LDPC, bit interleaver, APSK
 modulator, physical-layer framer (ETSI EN 302 307-1).
 
-Reference behavior (reimplemented TPU-first, NOT copied):
+Reference behavior (reimplemented, NOT copied):
   gr-dtv/lib/dvb/dvb_bbheader_bb_impl.cc   — 80-bit BBHEADER (matype, upl,
       dfl, sync, syncd) + CRC-8 (poly 0xAB, LSB-first shift); TS packets'
       0x47 sync replaced by CRC-8 of the previous packet's 187 bytes.
@@ -12,7 +12,7 @@ Reference behavior (reimplemented TPU-first, NOT copied):
       product of the minimal polynomials of alpha^1..alpha^(2t-1) (odd) —
       computed here from the field primitive polynomial instead of copying
       the reference's hardcoded factor tables. Encode = one GF(2) matmul
-      (bits x remainder-matrix) on the MXU.
+      (bits x remainder-matrix) as a matmul.
   gr-dtv/lib/dvb/dvb_ldpc_bb_impl.cc       — IRA LDPC: info bit (r*360+n)
       accumulates parity addresses (tab[r][c] + n*q) mod pbits; final
       staircase p[j] ^= p[j-1]. Encode = one scatter-add mod 2 + prefix-XOR
@@ -28,7 +28,7 @@ Reference behavior (reimplemented TPU-first, NOT copied):
       36-symbol pilots every 16 slots, and the 18-bit x/y Gold-sequence
       symbol scrambler (goldcode selects the x offset).
 
-TPU design: everything except the per-frame LFSRs is static gather/scatter
+Design: everything except the per-frame LFSRs is static gather/scatter
 or one matmul; all index tables and scramble sequences are precomputed
 host-side per config and closed over by the jitted chain. The PL scrambler
 is a complex multiply by a precomputed rotation vector.
@@ -226,7 +226,7 @@ def bbscramble(frames):
 
 
 # ---------------------------------------------------------------------------
-# BCH (encode = GF(2) matmul on the MXU)
+# BCH (encode = GF(2) matmul)
 # ---------------------------------------------------------------------------
 
 # field primitive polynomials (EN 302 307-1 table 6a first factor)

@@ -1,6 +1,6 @@
 """gr-dtv DVB-T2 transmit blocks (ETSI EN 302 755).
 
-Reference behavior (reimplemented TPU-first, NOT copied):
+Reference behavior (reimplemented, NOT copied):
   gr-dtv/lib/dvbt2/dvbt2_interleaver_bb_impl.cc — bit interleaver: parity
       interleave u[nbch+360t+s] = c[nbch+qs+t], column write with per-column
       cyclic twist, row-wise read, and the rate-dependent demux (mux tables,
@@ -22,7 +22,7 @@ Reference behavior (reimplemented TPU-first, NOT copied):
   LDPC/BCH reuse ops.dvbs2 (the T2 variants of the 2/3N and 3/5S tables are
       selected here).
 
-TPU design: the whole TX chain is permutation-composition — every
+Design: the whole TX chain is permutation-composition — every
 interleaver is a host-precomputed index vector applied as one gather, so
 XLA fuses bit-interleave -> map -> cell-interleave -> freq-interleave into
 a couple of kernels around the final batched IFFT.

@@ -3,7 +3,7 @@ interleaver (P2/data/FC symbol sizes), pilot generator + OFDM modulator,
 MISO processing, PAPR tone reservation, and P1 insertion (ETSI EN 302 755
 secs 7-9).
 
-Reference behavior (reimplemented TPU-first, NOT copied):
+Reference behavior (reimplemented, NOT copied):
   gr-dtv/lib/dvbt2/dvbt2_framemapper_cc_impl.cc — L1-pre/L1-post field
       packing + CRC32, shortened BCH (12-poly short-frame generator),
       shortened+punctured LDPC 1/4S / 1/2S, L1 bit interleave + demux
@@ -25,7 +25,7 @@ Reference behavior (reimplemented TPU-first, NOT copied):
   gr-dtv/lib/dvbt2/dvbt2_p1insertion_cc_impl.cc — C-A-B P1 preamble
       prepended per T2 frame (:210-279).
 
-TPU design: every interleaver/mapper stage is a host-precomputed index
+Design: every interleaver/mapper stage is a host-precomputed index
 vector applied as ONE gather/scatter on device, so XLA fuses the whole
 frame assembly (frame map -> freq interleave -> pilot scatter) into a
 couple of kernels in front of a single batched IFFT over all symbols of

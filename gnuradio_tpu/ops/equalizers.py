@@ -12,9 +12,9 @@ Reference parity:
   lib/decision_feedback_equalizer_impl.cc — feedforward + feedback taps
   legacy: cma_equalizer_cc, lms_dd_equalizer_cc.
 
-TPU design: tap adaptation is a true per-symbol recurrence -> lax.scan with
+Design: tap adaptation is a true per-symbol recurrence -> lax.scan with
 the tap vector as carry. Each scan step does an 8-to-64-tap dot product on
-the VPU; symbol rates make this cheap relative to the front-end kernels.
+vector lanes; symbol rates make this cheap relative to the front-end kernels.
 Decision device = nearest constellation point (vectorized gather).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """gr-fec: FECAPI analog — convolutional codes, Reed-Solomon, puncturing.
 
-Reference behavior (reimplemented TPU-first, not copied):
+Reference behavior (reimplemented, not copied):
   gr-fec/lib/cc_encoder_impl.cc   — shift-register conv encoder; state is the
       last k bits (newest at LSB), out bit j = parity(state & polys[j]),
       negative poly inverts; modes CC_STREAMING/TERMINATED/TAILBITING/TRUNCATED
@@ -12,11 +12,11 @@ Reference behavior (reimplemented TPU-first, not copied):
       kernel objects wrapped by deployment blocks
   Reed-Solomon: the reference wraps Phil Karn's librs (gr-fec/lib/reed-solomon);
       here RS is built from scratch over GF(2^8): parity = GF matrix product
-      (MXU-shaped gathers), decode = syndromes -> Berlekamp-Massey (unrolled
+      (matmul-shaped gathers), decode = syndromes -> Berlekamp-Massey (unrolled
       2t steps) -> Chien search (parallel matvec) -> Forney, batched over
       codewords.
 
-TPU design: the conv encoder is a windowed parity — bit windows [N, k] times
+Design: the conv encoder is a windowed parity — bit windows [N, k] times
 the poly bit matrix [k, n] mod 2, one int matmul instead of a scalar loop.
 The decoder reuses the vectorized Viterbi from ops.trellis. RS works on
 uint8-valued int32 arrays with log/antilog gather tables; everything is
@@ -99,8 +99,8 @@ def cc_encode(bits, k: int, rate: int, polys, start_state: int = 0,
         ext = jnp.concatenate([ext, tail])
     # Per-poly XOR of shifted slices: out[t, r] = XOR over set tap bits of
     # ext[t + k - 1 - c]. Elementwise int8 passes — the earlier (T, k)
-    # int32 window stack + matmul materialized ~1 GB at 37M bits
-    # (measured ~3.7 ms); this form is ~6 shifted reads.
+    # int32 window stack + matmul materialized ~1 GB at 37M bits; this
+    # form is ~6 shifted reads.
     T = ext.shape[0] - (k - 1)
     ext8 = ext.astype(jnp.int8)
     streams = []
@@ -160,7 +160,8 @@ def cc_decode_blockparallel(soft, frame_size: int, k: int, rate: int,
 
     The reference's viterbi decoder is a strictly sequential per-bit ACS
     loop (core_algorithms.cc:29-140); a multi-million-step lax.scan of
-    tiny vector work is the worst possible shape for the TPU. Standard
+    tiny vector work is the worst possible shape for a parallel device.
+    Standard
     overlapped block decoding fixes it: lane l decodes bits
     [l*block - overlap, (l+1)*block + overlap) with free start/end states
     and keeps only its middle `block` bits. With overlap >= ~25
@@ -415,10 +416,9 @@ class GF256:
 
     def mul_clmul(self, a, b):
         """GF(2^8) multiply as a carry-less shift-XOR product + modular
-        reduction — pure elementwise VPU int ops, NO table gathers. The
-        log/exp-gather form costs 3 gathers per multiply; the ~400
-        multiplies in the unrolled Berlekamp-Massey/Forney decode path
-        made those gathers ~all of the 43 ms RS step on TPU."""
+        reduction — pure elementwise int ops, NO table gathers. The
+        log/exp-gather form costs 3 gathers per multiply, times the ~400
+        multiplies in the unrolled Berlekamp-Massey/Forney decode path."""
         a = a.astype(jnp.int32)
         b = b.astype(jnp.int32)
         p = jnp.zeros(jnp.broadcast_shapes(a.shape, b.shape), jnp.int32)
@@ -451,7 +451,7 @@ class GF256:
 
 def _xor_reduce(x, axis=-1):
     n = x.shape[axis]
-    # log2 tree of bitwise XORs (VPU int ops)
+    # log2 tree of bitwise XORs (elementwise int ops)
     while n > 1:
         half = n // 2
         a = jax.lax.slice_in_dim(x, 0, half, axis=axis)
@@ -535,8 +535,8 @@ class ReedSolomon:
         """RS over GF(2^8) is GF(2)-LINEAR in the input bits, so the whole
         systematic encode is one XOR-matmul: BitGen[(i,b), (j,c)] = bit c of
         parity byte j for the unit input (byte i = 1<<b). Precomputed once
-        (host numpy); encode then runs as an MXU matmul mod 2 instead of
-        per-byte GF log/exp gathers (16.0 -> ~1 ms for 504 DVB packets)."""
+        (host numpy); encode then runs as a matmul mod 2 instead of
+        per-byte GF log/exp gathers."""
         if getattr(self, "_BG", None) is None:
             gf = self.gf
             # parity_j(unit i value v) = mul(P[i, j], v); P rows via exp/log
@@ -571,9 +571,8 @@ class ReedSolomon:
         """Constant GF matrix out[..., J] = sum_K M[J,K]*v[K] lowered to a
         GF(2) bit-matmul: multiplying by a CONSTANT GF(2^8) element is
         linear over the operand's bits, so the whole polynomial evaluation
-        becomes one [K*8, J*8] f32 matmul on the MXU instead of ~J*K
-        exp/log table gathers (the gathers measured ~60 ms per DVB
-        superframe on TPU; the matmul is noise)."""
+        becomes one [K*8, J*8] f32 matmul instead of ~J*K exp/log table
+        gathers."""
         key = "_BL_" + name
         B = getattr(self, key, None)
         if B is None:
@@ -613,8 +612,8 @@ class ReedSolomon:
         S = self._apply_bitlin(full, "S", self.S_log, self.S_nz)
         batch = S.shape[:-1]
         # gather-free GF ops for the unrolled BM/Omega/Forney below: the
-        # ~400 log/exp-gather multiplies measured ~all of a 43 ms RS step
-        # on TPU; the shift-XOR form is pure fused VPU work
+        # shift-XOR form replaces ~400 log/exp-gather multiplies with
+        # fused elementwise work
         _mul, _inv = gf.mul_clmul, gf.inv_clmul
 
         # Berlekamp-Massey, unrolled 2t iterations, arrays deg <= t

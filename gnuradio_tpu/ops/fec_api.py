@@ -12,7 +12,7 @@ Reference parity:
                                     puncture + pack wiring around the kernel
   ber_curve harness                 gr-fec/python/fec/bercurve* + fec_test
 
-TPU design: a *code* is a frame-level pair of pure functions —
+Design: a *code* is a frame-level pair of pure functions —
 encode_frames((F, k) bits) -> (F, n) bits and decode_frames((F, n) soft) ->
 (F, k) bits — vmapped over the frame axis so a whole step's frames become
 one batched device program (vs the reference's one-frame-at-a-time

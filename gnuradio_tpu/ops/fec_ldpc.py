@@ -7,9 +7,9 @@ Reference parity:
       Gaussian elimination to systematic form, encode via generator matrix
   ldpc_bit_flip_decoder / ldpc_decoder (awgn_bp.h) — iterative decoding
 
-TPU design: H is kept DENSE as an int8 mask [m, n] (the in-tree example
-codes are hundreds to a few thousand bits — dense masked VPU ops beat
-gather/scatter sparsity there). Encoding is a bit-matrix product on the MXU
+Design: H is kept DENSE as an int8 mask [m, n] (the in-tree example
+codes are hundreds to a few thousand bits — dense masked elementwise ops beat
+gather/scatter sparsity there). Encoding is a bit-matrix product (matmul)
 (mod 2). Decoding is flooding min-sum BP with the min1/min2 exclusion trick:
 every iteration is two dense masked reductions, no per-edge loops. Batch
 axis = codewords.

@@ -9,7 +9,7 @@ Reference parity:
   channel construction: Bhattacharyya-parameter ordering for the BEC
       (lib/polar/channel_construction.cc 'default constructor')
 
-TPU design: encoding is log2(n) fully-parallel XOR butterfly stages.
+Design: encoding is log2(n) fully-parallel XOR butterfly stages.
 SC decoding is the standard recursive f/g formulation written over STATIC
 shapes — Python recursion over halves traces to a fixed XLA graph (n is a
 compile-time constant); the sequential dependency is inherent to SC

@@ -1,6 +1,6 @@
 """Turbo product codes (gr-fec tpc_encoder/tpc_decoder).
 
-Reference behavior (reimplemented TPU-first, NOT copied):
+Reference behavior (reimplemented, NOT copied):
   gr-fec/lib/tpc_encoder.cc — product code over a krow x kcol payload
       block (padded with bval+qval leading zeros): every row is encoded by
       a recursive systematic convolutional (RSC) code given by an octal
@@ -11,7 +11,7 @@ Reference behavior (reimplemented TPU-first, NOT copied):
   gr-fec/lib/tpc_decoder.cc — iterative max-log-MAP SISO decoding, rows
       and columns alternating with extrinsic exchange.
 
-TPU design: row/column RSC encoding is a vmapped lax.scan (all rows on the
+Design: row/column RSC encoding is a vmapped lax.scan (all rows on the
 batch axis); the SISO halves reuse trellis.siso (vectorized min*
 forward/backward) vmapped over rows/columns; iterations are a fixed host
 loop. Serialization here is row-major over the full product array with

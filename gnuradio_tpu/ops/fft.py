@@ -2,7 +2,7 @@
 
 Reference parity map (SURVEY.md §2.2 gr-fft row):
   fft_vcc / fft_vfc    -> FftVcc (batched jnp.fft over vlen items — XLA's
-                          fused TPU FFT replaces FFTW plans + wisdom cache,
+                          fused XLA FFT replaces FFTW plans + wisdom cache,
                           gr-fft/lib/fft.cc:78-175; no plan state needed)
   window functions     -> window() (gr-fft/lib/window.cc, window.h)
   goertzel / goertzel_fc -> Goertzel (single-bin DFT evaluated directly —
@@ -142,7 +142,7 @@ class Goertzel(Block):
     (gr-fft/lib/goertzel.cc). The reference's order-2 resonator recurrence is
     algebraically the dot product y = sum_n x[n] e^{-j 2 pi k n / N} (up to
     the reference's final-state phase convention); we evaluate the dot
-    directly — one (T, N) x (N,) matvec on the MXU per step."""
+    directly — one (T, N) x (N,) matvec per step."""
 
     def __init__(self, rate: int, freq: float, batch_len: int | None = None,
                  in_complex=False, name=None):

@@ -7,7 +7,7 @@ Reference parity:
       (here: a JSON sidecar + PMT-serialized header, the checkpoint/resume
       surface of SURVEY.md §5)
 
-TPU design: the host boundary moves float32 planes (complex split re/im), so
+Design: the host boundary moves float32 planes (complex split re/im), so
 the file path is: native threaded reader (utils.native.IQFileReader — C++,
 double-mapped ring buffer, format conversion off the Python thread) ->
 device_put -> jitted chain. Falls back to NumPy memmap slicing when the

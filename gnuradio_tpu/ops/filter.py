@@ -2,7 +2,7 @@
 interpolating/rational resampling, DC blocker, Hilbert.
 
 Reference parity map (SURVEY.md §2.2 gr-filter row):
-  fir_filter_blk (all dtype combos)   -> FirFilter (one XLA conv on the MXU)
+  fir_filter_blk (all dtype combos)   -> FirFilter (one banded matmul)
   freq_xlating_fir_filter             -> FreqXlatingFirFilter (composite taps
                                          + fxpt rotator; lib/freq_xlating_*)
   fft_filter_ccc/fff (overlap-save,   -> FftFilter (batched FFT frames,
@@ -252,9 +252,9 @@ class IirFilter(SyncBlock):
             self.fb_int[1:] = -self.fb_int[1:]
         self.in_complex = in_complex
         # First-order stable recurrences with a short truncated impulse
-        # response run as ONE MXU FIR instead of the log-depth
-        # associative scan (exact to <1e-9; measured ~5.4 ms scan vs
-        # ~0.5 ms FIR at 1.6M samples — iir_core.first_order_fir_taps).
+        # response run as ONE FIR matmul instead of the log-depth
+        # associative scan (exact to <1e-9 —
+        # iir_core.first_order_fir_taps).
         # State then carries T-1 input samples instead of y[-1].
         self._fir_taps = None
         if (len(self.ff) - 1 <= 1 and len(self.fb_int) - 1 == 1

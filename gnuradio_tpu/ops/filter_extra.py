@@ -14,9 +14,9 @@ Reference parity:
                          lib/filterbank.cc — one FIR per vector element,
                          applied across the vector stream.
 
-TPU design notes: the filterbank is a batched banded-Toeplitz matmul — the
+Design notes: the filterbank is a batched banded-Toeplitz matmul — the
 per-arm FIRs stack into a (nfilts, ntaps) tap matrix and all arms run as one
-MXU contraction; freq_xlating_fft_filter reuses the batched overlap-save
+matmul contraction; freq_xlating_fft_filter reuses the batched overlap-save
 machinery of FftFilter with rotated taps and an int32 fixed-point NCO
 derotator (drift-free, replacing the reference rotator's 512-sample
 renormalization).
@@ -146,7 +146,7 @@ def freq_xlating_fft_filter_ccc(decim, taps, center_freq, samp_rate):
 class FilterbankVcvcf(Block):
     """filterbank_vcvcf: vector-in/vector-out bank of independent FIRs, one
     per vector element. All arms evaluate as ONE batched windowed matmul on
-    the MXU: (nfilts, ntaps) taps against per-arm sliding windows."""
+    one matmul: (nfilts, ntaps) taps against per-arm sliding windows."""
 
     def __init__(self, taps_list, name=None):
         super().__init__(name)

@@ -3,7 +3,7 @@
 Reference parity: gr-filter/lib/firdes.cc and gr-fft/lib/window.cc. Tap design
 runs once on the host in numpy float64 (SURVEY.md App. C: "Tap generation can
 be done in float64 NumPy/SciPy on host — only the streaming path runs on
-TPU"); the streaming kernels consume the resulting float32/complex64 taps.
+the device"); the streaming kernels consume the resulting float32/complex64 taps.
 
 Implemented from the textbook windowed-sinc method the reference uses:
 ntaps sized from the window's stopband attenuation A via

@@ -13,7 +13,7 @@ modem as orthogonal-carrier DQPSK:
 
   * frame = 40 ms = 320 speech samples = 2 modem symbols of 160 samples
   * 160-sample symbols @ 8 kHz make carriers exact 50 Hz DFT bins —
-    rectangular-window OFDM, demod is one 160-pt DFT row (MXU-friendly
+    rectangular-window OFDM, demod is one 160-pt DFT row (matmul-shaped
     batched matmul on device paths; numpy here since speech codecs run
     host-side through the gateway trampoline like the reference's C libs)
   * payload 112 bits/frame: 2 x codec2-2400 subframes (96) + 8-bit sync
@@ -74,7 +74,7 @@ def _qpsk_to_bits(pts):
 class FreeDVTx:
     """Frame-synchronous modulator: 320 int16 speech -> 320 int16 modem."""
 
-    def __init__(self, mode=1600, msg_txt="GNU Radio TPU"):
+    def __init__(self, mode=1600, msg_txt="GNU Radio JAX"):
         from .codec2_native import Codec2
         self.c2 = Codec2(2400)
         self.msg = (msg_txt or " ") + "\r"   # CR-terminated like the ref

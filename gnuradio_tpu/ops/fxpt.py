@@ -6,7 +6,7 @@ The key semantic (SURVEY.md App. C) is that phase wraps EXACTLY mod 2^32, so a
 sig_source or frequency modulator never drifts over 10^12 samples the way a
 float32 phase accumulator would. We keep the int32 accumulator (JAX/XLA int
 arithmetic wraps two's-complement, i.e. exactly mod 2^32) but evaluate
-sin/cos with the TPU VPU's native transcendentals instead of the reference's
+sin/cos with the device's native transcendentals instead of the reference's
 LUT — more accurate than the LUT, documented substitution.
 """
 from __future__ import annotations

@@ -4,8 +4,8 @@ Reference parity: gr::filter::single_pole_iir (include/gnuradio/filter/
 single_pole_iir.h) and iir_filter (gr-filter/lib/iir_filter.cc) run per-sample
 feedback loops on the CPU. A first-order linear recurrence
     y[n] = a * y[n-1] + d[n]
-is associative under (A,B) composition, so on TPU we evaluate it with
-jax.lax.associative_scan in O(log n) depth — fully parallel on the VPU —
+is associative under (A,B) composition, so on device we evaluate it with
+jax.lax.associative_scan in O(log n) depth — fully parallel —
 instead of an O(n) sequential scan. Bit-for-bit it differs from sequential
 evaluation only by float reassociation, well inside the QA SNR bounds
 (SURVEY.md §4 tolerances).
@@ -89,8 +89,8 @@ def first_order_fir_taps(b0, b1, r, eps: float = 1e-9):
     """Truncated impulse response of y[n] = b0 x[n] + b1 x[n-1] + r y[n-1]:
     h[0] = b0, h[k>=1] = (b0 r + b1) r^(k-1), cut where |r|^K < eps. For
     stable poles this is EXACT to float32 well below QA tolerances and
-    turns the recurrence into one MXU FIR — the associative_scan costs
-    log-depth HBM passes (measured 5.4 ms vs ~0.5 ms at 1.6M samples)."""
+    turns the recurrence into one FIR matmul — the associative_scan costs
+    log-depth passes over device memory."""
     import numpy as np
     r = float(r)
     K = int(np.ceil(np.log(eps) / np.log(max(abs(r), 1e-12)))) + 2

@@ -1,7 +1,7 @@
 """Instrumentation sinks — the gr-qtgui analog, headless.
 
 Reference parity: gr-qtgui's time/freq/waterfall/constellation/histogram/
-eye sinks (SURVEY.md §2.2). On a headless TPU node the GUI is out of scope
+eye sinks (SURVEY.md §2.2). On a headless accelerator node the GUI is out of scope
 (explicitly allowed by SURVEY.md App. B closing note); what matters is the
 MEASUREMENT pipeline those sinks embed: windowed PSD frames, waterfall
 history, constellation snapshots, histograms, eye traces. Each sink here

@@ -398,8 +398,8 @@ class DummyDecoder:
 
 
 def ldpc_gen_mtrx_encode(G: np.ndarray, info_bits):
-    """ldpc_gen_mtrx_encoder: codeword = info @ G mod 2. On TPU this is ONE
-    int matmul on the MXU (the reference does bit-serial GF(2) row ops —
+    """ldpc_gen_mtrx_encoder: codeword = info @ G mod 2. On device this is ONE
+    int matmul (the reference does bit-serial GF(2) row ops —
     gr-fec/lib/ldpc_G_matrix_impl.cc); batches of frames vmap for free."""
     G = jnp.asarray(np.asarray(G, np.int32))
     s = jnp.asarray(np.asarray(info_bits, np.int32))

@@ -1,24 +1,23 @@
 """Multi-channel closed-loop symbol synchronization — tracking loops as a
-real TPU citizen (round-3 item #1).
+data-parallel program (round-3 item #1).
 
 The reference's symbol_sync/pfb_clock_sync hot loop
 (gr-digital/lib/symbol_sync_cc_impl.cc:389-470) is a per-symbol scalar
 recurrence: interpolate at the current fractional clock, run a timing-error
 detector, update a PI loop, advance the clock. A literal per-sample
-`lax.scan` translation costs ~17 us/step through this chip's dispatch path
+`lax.scan` translation pays one sequential step per sample
 (ops/digital_loops.py keeps that form for single-stream parity). This module
-is the TPU-first redesign:
+is the data-parallel redesign:
 
   * N independent channels ride the LANE axis. One scan step processes one
     SYMBOL for all N channels simultaneously — the per-step while-loop
     overhead is amortized N ways, and every operation inside the step is a
-    (N,)-vector VPU op.
+    (N,)-vector op.
   * The per-channel integer sample offset is bounded (|dev| <= W samples
     from the nominal k*sps grid). Each step dynamic-slices one small
     (win, N) window at the *shared* nominal position and resolves each
     channel's private offset with one-hot row weights — a (win, N)
-    multiply-accumulate, NOT a gather (TPU gathers are the measured trap,
-    see kernels/fir_pallas.py notes).
+    multiply-accumulate, NOT a gather.
   * Fractional interpolation is a cubic Farrow (4-point Lagrange) evaluated
     as polynomials in mu — no tap-table lookups. The reference's MMSE
     8-tap interpolator (gr-filter/lib/mmse_fir_interpolator_cc.cc) is a

@@ -11,7 +11,7 @@ Reference parity:
                          header parser
   plateau_detector_fb    gr-blocks/lib/plateau_detector_fb_impl.cc
 
-TPU design (SURVEY.md §7 hard part (b) — data-dependent output under static
+Design (SURVEY.md §7 hard part (b) — data-dependent output under static
 shapes): the demux emits fixed-size SLOTS with validity masks instead of
 variable-length sections. The input is divided into regions of R samples; at
 most one burst may start per region (a protocol spacing contract, like the

@@ -12,7 +12,7 @@ Reference parity:
   burst_shaper_cc (gr-digital/lib/burst_shaper_impl.cc): window ramps on
       the first/last taps of each burst + zero padding
 
-TPU split: packet formatting is control-plane work at packet rate — host
+Split: packet formatting is control-plane work at packet rate — host
 NumPy here (PDU in, PDU out), exactly where the reference does scalar C++.
 The payload modulation around it stays on device.
 """

@@ -7,7 +7,7 @@ Reference parity (gr-blocks/include/gnuradio/blocks/):
   tagged_stream_to_pdu  lib/tagged_stream_to_pdu_impl.cc — inverse
   pdu_filter / pdu_set / pdu_remove — metadata dict tools (message-only)
 
-TPU design: PDU payloads enter the device plane through the host-fed
+Design: PDU payloads enter the device plane through the host-fed
 source path (a queue of delivered PDUs becomes the step's chunk, padded to
 the static chunk size with a validity count recorded in the length tags);
 the sink direction reassembles packets from the length-tag sideband."""

@@ -10,10 +10,10 @@ Reference parity map (SURVEY.md §2.2 gr-filter row):
   pfb_interpolator_ccf (lib/pfb_interpolator_ccf_impl.cc)
   pfb_synthesizer_ccf  (lib/pfb_synthesizer_ccf_impl.cc)
 
-TPU-first design:
+Design:
   * The channelizer's input commutator (stream_to_streams + index LUT in the
-    reference) is a reshape; the M arm FIRs are ONE batched convolution on
-    the MXU; the output commutator is one batched FFT. No per-arm loops.
+    reference) is a reshape; the M arm FIRs are ONE batched banded matmul;
+    the output commutator is one batched DFT. No per-arm loops.
   * The arb resampler's sequential accumulator (d_acc += d_flt_rate; arm
     jump d_dec_rate + floor(d_acc), pfb_arb_resampler.cc:157-211) telescopes
     into a CLOSED FORM: the combined arm+input index of output k is
@@ -79,7 +79,7 @@ class PfbChannelizer(Block):
     i.e. the SAME per-arm decimated sequences, filtered under a per-phase
     arm permutation with a whole-block advance — the reference's rotating
     d_idxlut realized as a static gather. O*M (tap-arm, signal-row) pairs
-    become one batched MXU conv; phases interleave back as t = s*O + p.
+    become one batched matmul; phases interleave back as t = s*O + p.
     """
 
     def __init__(self, nchans: int, taps, oversample_rate: float = 1.0,
@@ -127,17 +127,14 @@ class PfbChannelizer(Block):
     def _arm_signals(self, xp, nout_per_row: int):
         """(M, L-1+nout_per_row) arm rows: u_m[j] = xp[jM + M-1-m].
 
-        Built as ONE reshape + transpose + flip — M strided slices
-        (xp[M-1-m::M]) compile to stride-M gathers that run ~20x slower
-        than this 2-D relayout on TPU (measured: 58.8 ms vs <3 ms for the
-        64-ch config's arm build)."""
+        Built as ONE reshape + transpose + flip instead of M strided slices
+        (xp[M-1-m::M]), which compile to stride-M gathers."""
         return _arm_rows(xp, self.M, self.L - 1 + nout_per_row)
 
     def _ifft_rows(self, V):
         """y = M * IFFT along axis 0. For M <= 256 this is ONE plane matmul
-        E @ V with E[c, m] = e^{+2j pi c m / M} — the XLA small-N FFT
-        custom call costs ~10x more in dispatch/layout than the MXU matmul
-        (same finding as ops/ofdm.dft_apply, round 3)."""
+        E @ V with E[c, m] = e^{+2j pi c m / M} at HIGHEST precision, in
+        place of a small-N FFT (same choice as ops/ofdm.dft_apply)."""
         M = self.M
         if M > 256:
             return (jnp.fft.ifft(V, axis=0) * M).astype(C)
@@ -406,9 +403,8 @@ class PfbArbResampler(Block):
         repeats every P outputs / Q inputs, and the linear interpolation
         o0 + a*o1 FOLDS into per-output combined taps arms[j] + a*darms[j].
         One (G, t*Q+L-1) frame matrix @ (t*Q+L-1, t*P) tap matrix then
-        yields t*P outputs per frame on the MXU — no per-output gather at
-        all (gather-based indexing was ~30x off roofline on TPU). t tiles
-        groups up toward the 128-lane MXU width."""
+        yields t*P outputs per frame — no per-output gather at all. t
+        tiles groups up toward 128 outputs per frame."""
         P, Q, nf, L = self.P, self.Q, self.nfilts, self.L
         if P * Q > (1 << 22):  # pathological rationals: keep gather path
             self.TM = None
@@ -479,31 +475,6 @@ class PfbArbResampler(Block):
         else:
             Y = mm(F.astype(jnp.float32))
         return Y.reshape(B, G * t * P)[:, :n_out]
-
-    def resample_batched_tc(self, yp_r, yp_i):
-        """Natural-layout form: (L + n, C) f32 PLANES in, ((n_out, C) r,
-        (n_out, C) i) planes out. Frames along t are flat shifted reshapes
-        at row (C) granularity — no per-channel vmap, no transpose; pairs
-        with kernels/pfb_pallas.pfb_channelize_fused."""
-        from ..kernels.fir_xla import _frame
-        assert self.TM is not None, "tile path required for tc form"
-        Lh = self.L
-        n = yp_r.shape[0] - Lh
-        Cc = yp_r.shape[1]
-        n_out = n * self.P // self.Q
-        t, P, Q = self.tile_groups, self.P, self.Q
-        G = -(-n_out // (t * P))
-        hop = t * Q
-        TMj = jnp.asarray(self.TM)                   # (Wd, t*P)
-
-        def one(plane):
-            F = _frame(plane.reshape(-1), G, hop * Cc,
-                       self.Wd * Cc).reshape(G, self.Wd, Cc)
-            Y = jnp.einsum("gwc,wj->gjc", F, TMj,
-                           precision=jax.lax.Precision.HIGHEST)
-            return Y.reshape(G * t * P, Cc)[:n_out]
-
-        return one(yp_r), one(yp_i)
 
     @property
     def in_rates(self):

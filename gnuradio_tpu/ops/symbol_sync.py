@@ -13,7 +13,7 @@ Reference parity: gr-digital's modern symbol synchronizer
   * an interpolating resampler (the MMSE 8-tap interpolator table,
     lib/interpolating_resampler.cc)
 
-TPU design: one lax.scan per chunk over OUTPUT symbols (same masked
+Design: one lax.scan per chunk over OUTPUT symbols (same masked
 static-rate contract as ClockRecoveryMM — SURVEY.md §7 hard part (b)); each
 step interpolates the symbol sample and, for mid-sample TEDs, the
 half-period sample. Runs at symbol rate; the heavy matched filter stays in

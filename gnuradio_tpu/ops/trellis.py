@@ -1,6 +1,6 @@
 """gr-trellis: FSM-based coded modulation — encoder, Viterbi, SISO (BCJR).
 
-Reference behavior (NOT copied; reimplemented TPU-first):
+Reference behavior (NOT copied; reimplemented):
   gr-trellis/lib/fsm.cc            — FSM table construction (generator-matrix
                                      constructor at :116, file format at :71,
                                      PS/PI tables via generate_PS_PI)
@@ -11,10 +11,10 @@ Reference behavior (NOT copied; reimplemented TPU-first):
                                      min / min* recursions
   gr-trellis/lib/calc_metric.cc    — TRELLIS_EUCLIDEAN / HARD_SYMBOL metrics
 
-TPU design: the reference runs a scalar triple loop (time x next-state x
+Design: the reference runs a scalar triple loop (time x next-state x
 predecessor). Here the state dimension is a *vector axis*: the ACS step is a
 gather over dense predecessor tables [S, P] plus a min-reduce, and time is a
-`lax.scan`. S=64..8192 states ride the VPU lanes; independent K-symbol blocks
+`lax.scan`. S=64..8192 states ride vector lanes; independent K-symbol blocks
 batch via vmap. Traceback is a reverse scan over the stored decisions.
 
 All FSM table construction is host-side NumPy (done once at graph build);
@@ -275,20 +275,17 @@ def _viterbi_path_radix(fsm: FSM, metrics, S0: int, SK: int, R: int):
     """viterbi_path with R trellis steps folded into each scan step:
     P^R candidate paths per state, one argmin — identical decisions and
     tie-breaks to the sequential ACS (see _radix_tables), but the two
-    length-K scans shrink to K/R, which is what the TPU pays for (both the
-    ACS and the traceback step cost is dominated by per-step loop/dispatch
-    overheads at streaming sizes, not FLOPs — measured 105 ms -> ~45 ms on
-    the DVB-T 2k chain at R=4)."""
+    length-K scans shrink to K/R (both the ACS and the traceback step cost
+    is dominated by per-step loop overheads at streaming sizes, not
+    FLOPs)."""
     K = metrics.shape[0]
     PS_R, OUT_R, PACK_R, PMASK_R = _radix_tables(fsm, R)
     S, PR = PS_R.shape
     O = fsm.O
     I_ = fsm.I
     # Both per-step gathers (alpha[PS_R] and mR[k][OUT_R[k]]) are
-    # tiny-table/big-index gathers — the measured-catastrophic TPU shape
-    # (the naive radix form ran 7x SLOWER than radix-1). Re-express them
-    # as ONE-HOT MATMULS on the MXU instead: exact under
-    # precision=HIGHEST (f32 bf16x3 passes), and the whole candidate
+    # tiny-table/big-index gathers. Re-express them as ONE-HOT MATMULS
+    # instead: exact under precision=HIGHEST, and the whole candidate
     # build becomes two small matmuls + adds.
     A = np.zeros((S, S * PR), np.float32)     # alpha spread
     A[PS_R.reshape(-1), np.arange(S * PR)] = 1.0
@@ -343,9 +340,8 @@ def viterbi_path(fsm: FSM, metrics, S0: int = 0, SK: int = -1,
 
     # Survivor (input, prev_state) pairs are packed per (k, state) INSIDE
     # the ACS step as a P-way select over the precomputed [S, P] table —
-    # avoiding a huge post-hoc [K, S]-indexed gather from PI/PS which
-    # measured ~50x the cost of the whole ACS on TPU (gathers with large
-    # index arrays from tiny tables lower badly there; selects vectorize).
+    # avoiding a huge post-hoc [K, S]-indexed gather from PI/PS (gathers
+    # with large index arrays from tiny tables; selects vectorize).
     PACK = (PI << 16) | PS                             # [S, P] int32
 
     def acs(alpha, m):
@@ -363,8 +359,7 @@ def viterbi_path(fsm: FSM, metrics, S0: int = 0, SK: int = -1,
 
     # Traceback: sequential by nature, but the body is a single tiny
     # gather per step. (A log-depth associative composition of survivor
-    # maps and a grouped-unroll variant were both tried and measured
-    # 10-100x SLOWER than this scan on TPU.)
+    # maps and a grouped-unroll variant are the alternatives.)
     def tb(st, pk):
         v = pk[st]
         return v & 0xFFFF, v >> 16

@@ -22,7 +22,7 @@ Reference parity:
   blks2_error_rate            legacy grc-gnuradio error-rate hier: running
                               symbol/bit error fraction over a window.
 
-TPU design notes: every block processes whole K-symbol code blocks per
+Design notes: every block processes whole K-symbol code blocks per
 step (output_multiple), so the turbo loops (static python loop of SISO
 lax.scans) and Viterbi traceback batch across blocks via vmap.
 """

@@ -8,11 +8,11 @@ iterative decoders in gr-trellis/lib/core_algorithms.cc (sccc_decoder_*,
 pccc_decoder — turbo loops exchanging SISO extrinsics through the
 interleaver).
 
-TPU design notes: each SISO is two lax.scans (forward/backward in the min*
+Design notes: each SISO is two lax.scans (forward/backward in the min*
 domain, see trellis.siso); the turbo loop is a short static Python loop of
 `niterations` SISO pairs, all fused into one XLA program. Interleaving is a
 gather. Independent blocks decode in parallel with vmap (batch axis = code
-blocks), which is how this reaches MXU-scale utilization despite the
+blocks), which is how this reaches matmul-scale batch sizes despite the
 per-symbol recurrence.
 """
 from __future__ import annotations
@@ -159,7 +159,7 @@ def pccc_decode_combined(fsm1: FSM, fsm2: FSM, perm, observations, table,
 
 def sccc_decode_batched(fsm_outer, fsm_inner, perm, obs_metrics_batch,
                         niterations=5, **kw):
-    """vmap over independent code blocks — the TPU throughput path."""
+    """vmap over independent code blocks — the throughput path."""
     return jax.vmap(
         lambda o: sccc_decode(fsm_outer, fsm_inner, perm, o,
                               niterations, **kw))(obs_metrics_batch)

@@ -9,7 +9,7 @@ self-contained codecs. Implemented from their specs here:
 External-lib codecs (codec2, gsm-fr, g721/g723) are gated: their factories
 raise with a clear message, matching the reference's optional components.
 
-TPU note: G.711 is pure elementwise bit math (VPU). CVSD is a per-sample
+Note: G.711 is pure elementwise bit math. CVSD is a per-sample
 feedback loop -> lax.scan at audio rate (trivially cheap).
 """
 from __future__ import annotations
@@ -260,7 +260,7 @@ def cvsd_decode_bs():
 # reverse with timing/frame sync (rx); text side channel one char/frame.
 # ---------------------------------------------------------------------------
 
-def freedv_tx_ss(mode=1600, msg_txt="GNU Radio TPU", interleave_frames=1):
+def freedv_tx_ss(mode=1600, msg_txt="GNU Radio JAX", interleave_frames=1):
     """int16 speech @8kHz -> int16 modem samples @8kHz, 320/frame."""
     from .freedv import FreeDVTx, n_nom_modem_samples, n_speech_samples
 

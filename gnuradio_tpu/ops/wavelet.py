@@ -3,7 +3,7 @@
 Reference parity: gr-wavelet/lib/wavelet_ff_impl.cc wraps GSL's
 gsl_wavelet_transform (Daubechies family, periodic boundary), squash_ff,
 wvps_ff (wavelet power spectrum). Here the DWT is the standard pyramid
-filter bank evaluated as batched convolutions (periodic wrap) — MXU/VPU
+filter bank evaluated as batched convolutions (periodic wrap) — matmul/elementwise
 friendly, no GSL.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Parallelism layer: time-axis sharding (sequence parallelism) with halo
-exchange, channel-axis sharding, and mesh helpers — the TPU-native
+exchange, channel-axis sharding, and mesh helpers — the compiled
 replacement for the reference's scheduler pipelining and gr-zeromq
 distribution (SURVEY.md §2.4)."""
 from .halo import (left_halo, shard_offset, first_order_boundary,

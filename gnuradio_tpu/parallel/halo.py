@@ -5,7 +5,7 @@ This is the north-star seam of the whole framework (SURVEY.md §2.4 row
 filters causal across chunk boundaries by re-presenting the last N-1 input
 items (`history()`, gnuradio-runtime/include/gnuradio/block.h:82-91). When a
 stream chunk is sharded across chips along time, those N-1 items live on the
-*left neighbor chip*, so the history contract becomes a `ppermute` ICI
+*left neighbor chip*, so the history contract becomes a `ppermute`
 collective, and the chunk-to-chunk carry (shard 0's history) stays a small
 replicated array.
 
@@ -31,7 +31,7 @@ def _axis_size(axis_name: str) -> int:
 def replicate_from_last(val, axis_name: str):
     """Replicate `val` (shape S) from the LAST shard to all shards.
 
-    Implemented as a masked psum — O(|val|) over ICI, used for tiny carries
+    Implemented as a masked psum — O(|val|) between devices, used for tiny carries
     (filter tails, phase scalars), never for bulk data.
     """
     D = _axis_size(axis_name)

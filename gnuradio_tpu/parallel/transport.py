@@ -7,7 +7,7 @@ Reference parity:
   gr-zeromq QA (qa_zeromq_pubsub.py etc.) — both ends in one process over
       localhost, asserting sample+tag fidelity across the hop
 
-TPU design split (SURVEY.md §2.4/§5): *intra-slice* streams move over ICI
+Design split (SURVEY.md §2.4/§5): *intra-host* streams move between devices
 via jax collectives inside shard_map (parallel.halo); this module is the
 *inter-host / DCN* seam — plain TCP with length-prefixed frames (PUSH/PULL
 semantics: connection-oriented, kernel backpressure = the HWM analog).

@@ -5,7 +5,7 @@ accumulated in block_detail.cc:253-315, measured around the work call in
 block_executor.cc:497-509): instantaneous/average/variance of work time,
 items produced, throughput; `probe_rate` block; exported over ControlPort.
 
-TPU design: blocks fuse into ONE XLA program, so the natural granularity is
+Design: blocks fuse into ONE XLA program, so the natural granularity is
 the *step*: wall time per step, items/s at the anchor rate, EMA + variance
 (Welford). Per-kernel timings come from the XLA profiler (jax.profiler) —
 `trace()` wraps a region for xprof, the gr-perf-monitorx analog."""

@@ -150,7 +150,7 @@ def test_qpsk_loopback_chunked(rng):
 
 
 def test_qpsk_feedforward_rx_loopback(rng):
-    """TPU-first feedforward QPSK receiver (O&M timing + V&V carrier):
+    """Data-parallel feedforward QPSK receiver (O&M timing + V&V carrier):
     same BER contract as the tracking-loop form, fully parallel."""
     from gnuradio_tpu.models.qpsk import make_qpsk_rx_feedforward
     nsym = 16384

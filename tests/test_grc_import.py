@@ -1,5 +1,5 @@
 """Reference .grc interop QA: load actual GNU Radio example flowgraphs from
-/root/reference onto TPU blocks and run them end-to-end (VERDICT r01
+/root/reference onto this package's blocks and run them end-to-end (VERDICT r01
 missing #9)."""
 import os
 

@@ -1,5 +1,6 @@
 """QA: modtool scaffolding round-trip (the gr-utils/modtool/tests pattern:
 scaffold, then the generated module must actually work)."""
+import os
 import subprocess
 import sys
 
@@ -49,7 +50,8 @@ def test_modtool_cli(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "gnuradio_tpu.modtool", "newmod", "cli",
          "--dir", str(tmp_path)],
-        capture_output=True, text=True, cwd="/root/repo")
+        capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert out.returncode == 0, out.stderr
     assert (tmp_path / "gr_cli" / "blocks.py").exists()
 

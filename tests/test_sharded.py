@@ -94,17 +94,21 @@ def test_wfm_sharded_matches_unsharded():
     assert rel < 1e-5, rel
 
 
+@pytest.mark.parametrize("front", [
+    pytest.param(dict(front="xla"), id="xla"),
+    pytest.param(dict(front="triton", interpret=True), id="triton-interpret")])
 @pytest.mark.parametrize("D", [2, 8])
-def test_wfm_sharded_fused_matches_unsharded_fused(D):
-    """Round-4 convergence (VERDICT r03 weak #4): the sharded path must run
-    the SAME fused Pallas front end as the single-chip flagship. Exactness
-    vs the unsharded fused chain across shard counts."""
+def test_wfm_sharded_fused_matches_unsharded_fused(D, front):
+    """The sharded path runs the SAME front stage as the single-device
+    production step (models/wfm.make_wfm_step_fused). Exactness vs the
+    unsharded chain across shard counts."""
     from gnuradio_tpu.models.wfm_sharded import make_wfm_sharded_fused
     from gnuradio_tpu.models.wfm import make_wfm_step_fused
 
     rng = np.random.default_rng(11)
     mesh = make_mesh(n_time=D)
-    init_s, step_s, specs = make_wfm_sharded_fused(mesh, center_freq=25_000.0)
+    init_s, step_s, specs = make_wfm_sharded_fused(mesh, center_freq=25_000.0,
+                                                   **front)
     n = max(specs["min_items_per_shard"] * D, 20 * specs["decim"] * D)
     iq = (rng.standard_normal((n, 2)) * 0.3).astype(np.float32)
 
@@ -115,11 +119,11 @@ def test_wfm_sharded_fused_matches_unsharded_fused(D):
         outs.append(np.asarray(a))
     sharded = np.concatenate(outs)
 
-    # unsharded fused flagship (stage2="split" matches the separate
+    # unsharded production step (stage2="split" matches the separate
     # audio-FIR + exact-IIR staging closest; deemph differs by the
     # truncated-FIR-vs-IIR form at <1e-9 — tolerance covers it)
     init_u, step_u, _ = make_wfm_step_fused(center_freq=25_000.0,
-                                            interpret=True, stage2="split")
+                                            stage2="split", **front)
     su = init_u()
     outs = []
     for _ in range(3):
@@ -133,8 +137,10 @@ def test_wfm_sharded_fused_matches_unsharded_fused(D):
 
 
 def test_dryrun_multichip_entrypoint():
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import __graft_entry__ as ge
     ge.dryrun_multichip(8)
 

@@ -1,23 +1,21 @@
-"""QA: fused WBFM front-end Pallas kernel (kernels/wfm_fused_pallas.py)
-vs the unfused reference-parity chain (models/wfm.make_wfm_step), interpret
-mode on CPU — same golden-comparison discipline as tests/test_fir_pallas.py."""
+"""QA: the production WBFM step (models/wfm.make_wfm_step_fused) and its
+front stage (kernels/wfm_front.py) vs the reference-parity chain
+(models/wfm.make_wfm_step) and a float64 numpy reference. Every case runs
+both fronts: the plain XLA form and the Triton kernel in the Pallas
+interpreter (the compiled kernel runs in the gpu-marked test and in
+chip_smoke.py)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from gnuradio_tpu.kernels.wfm_fused_pallas import _atan2, WfmFrontFused
-from gnuradio_tpu.models.wfm import make_wfm_step, make_wfm_step_fused
+from gnuradio_tpu.kernels.wfm_front import WfmFront
+from gnuradio_tpu.models.wfm import (channel_taps, make_wfm_step,
+                                     make_wfm_step_fused)
 
-
-def test_atan2_poly_accuracy(rng):
-    y = rng.standard_normal(20000).astype(np.float32) * 3
-    x = rng.standard_normal(20000).astype(np.float32) * 3
-    got = np.asarray(jax.jit(_atan2)(jnp.asarray(y), jnp.asarray(x)))
-    ref = np.arctan2(y.astype(np.float64), x.astype(np.float64))
-    assert np.max(np.abs(got - ref)) < 2e-6
-    # edge cases: atan2(0, 0) must be 0 (stream-start demod convention)
-    z = np.asarray(jax.jit(_atan2)(jnp.zeros(4), jnp.zeros(4)))
-    np.testing.assert_array_equal(z, 0.0)
+FRONTS = [pytest.param(dict(front="xla"), id="xla"),
+          pytest.param(dict(front="triton", interpret=True),
+                       id="triton-interpret")]
 
 
 def _fm_like_iq(rng, n, fs=1e6, fdev=75e3):
@@ -31,7 +29,47 @@ def _fm_like_iq(rng, n, fs=1e6, fdev=75e3):
     return iq.astype(np.complex64)
 
 
-def test_fused_matches_unfused(rng):
+def _front_ref(front, xq):
+    """float64 numpy: demod of the decimating complex FIR's outputs."""
+    D, T = front.D, front.T
+    w = np.asarray(front.ctaps, np.complex128)[::-1]
+    n_out = (len(xq) - front.history) // D
+    y = np.array([np.dot(w, xq[k * D:k * D + T]) for k in range(n_out + 1)])
+    z = y[1:] * np.conj(y[:-1]) * front.c0
+    return front.gain * np.angle(z)
+
+
+@pytest.mark.parametrize("kw", FRONTS)
+@pytest.mark.parametrize("D,fc,n_out", [
+    (4, 0.0, 3000),            # WBFM widths, several programs + tail
+    (4, 120e3, 1007),          # freq-xlating, ragged tail
+    (3, 50e3, 999),            # decimation not a power of two
+    (5, 0.0, 200),             # one program larger than the output
+])
+def test_front_matches_float64(rng, kw, D, fc, n_out):
+    front = WfmFront(channel_taps(1e6, 1e6 / D), fc, 1e6, D, 0.53)
+    iq = _fm_like_iq(rng, front.history + n_out * D)
+    x = np.stack([iq.real, iq.imag]).astype(np.float32)
+    impl = kw["front"]
+    got = np.asarray(front(jnp.asarray(x[0]), jnp.asarray(x[1]), impl=impl,
+                           interpret=kw.get("interpret", False)))
+    ref = _front_ref(front, x[0].astype(np.float64) + 1j * x[1])
+    assert got.shape == ref.shape == (n_out,)
+    # constant-envelope input keeps |y| near 1, so f32 rounding stays far
+    # below this bound on the demodulated angle (the output's range is
+    # gain * pi)
+    assert np.max(np.abs(got - ref)) < 1e-5 * np.pi
+
+
+def test_front_unknown_impl_raises():
+    front = WfmFront(channel_taps(1e6, 250e3), 0.0, 1e6, 4, 0.53)
+    x = jnp.zeros(front.history + 400, jnp.float32)
+    with pytest.raises(ValueError):
+        front(x, x, impl="mosaic")
+
+
+@pytest.mark.parametrize("kw", FRONTS)
+def test_fused_matches_unfused(rng, kw):
     n = 120_000
     iq = _fm_like_iq(rng, n)
     planes = np.stack([iq.real, iq.imag], -1).astype(np.float32)
@@ -40,17 +78,16 @@ def test_fused_matches_unfused(rng):
     su = init_u()
     su, ref = jax.jit(step_u)(su, jnp.asarray(iq))
 
-    init_f, step_f, _ = make_wfm_step_fused(1e6, 250e3, 50e3, interpret=True)
+    init_f, step_f, _ = make_wfm_step_fused(1e6, 250e3, 50e3, **kw)
     sf = init_f()
     sf, got = jax.jit(step_f)(sf, jnp.asarray(planes))
 
     ref = np.asarray(ref)
     got = np.asarray(got)
     assert got.shape == ref.shape
-    # stream-start transient: sample 0 of the demod is arg(y0 * conj(0)) —
-    # jnp.arctan2(+0,-0)=pi in the unfused chain vs 0 from the kernel's
-    # polynomial atan2. Both are arbitrary on that dead sample; its value
-    # smears across the audio FIR's warmup, so compare past the transient.
+    # stream-start transient: sample 0 of the demod is arg(y0 * conj(0)),
+    # arbitrary in both chains; its value smears across the audio FIR's
+    # warmup, so compare past the transient.
     skip = 64
     ref, got = ref[skip:], got[skip:]
     err = np.max(np.abs(got - ref))
@@ -58,7 +95,8 @@ def test_fused_matches_unfused(rng):
     assert err / scale < 2e-4, f"fused/unfused mismatch: {err} (scale {scale})"
 
 
-def test_fused_freq_xlating_matches(rng):
+@pytest.mark.parametrize("kw", FRONTS)
+def test_fused_freq_xlating_matches(rng, kw):
     """Nonzero center frequency: the collapsed-rotator algebra must match
     the fxpt-NCO rotator chain within the fxpt quantization bound."""
     n = 80_000
@@ -72,7 +110,7 @@ def test_fused_freq_xlating_matches(rng):
     su = init_u()
     su, ref = jax.jit(step_u)(su, jnp.asarray(iq))
     init_f, step_f, _ = make_wfm_step_fused(1e6, 250e3, 50e3, center_freq=fc,
-                                            interpret=True)
+                                            **kw)
     sf = init_f()
     sf, got = jax.jit(step_f)(sf, jnp.asarray(planes))
     skip = 64  # dead-sample transient, see test_fused_matches_unfused
@@ -81,12 +119,12 @@ def test_fused_freq_xlating_matches(rng):
     assert err / scale < 1e-3, f"freq-xlating mismatch: {err}"
 
 
-def test_fused_chunk_invariance(rng):
+@pytest.mark.parametrize("kw", FRONTS)
+def test_fused_chunk_invariance(rng, kw):
     n = 160_000
     iq = _fm_like_iq(rng, n)
     planes = jnp.asarray(np.stack([iq.real, iq.imag], -1).astype(np.float32))
-    init_f, step_f, mult = make_wfm_step_fused(1e6, 250e3, 50e3,
-                                               interpret=True)
+    init_f, step_f, mult = make_wfm_step_fused(1e6, 250e3, 50e3, **kw)
     s = init_f()
     s, yA = jax.jit(step_f)(s, planes)
     half = (n // (2 * mult)) * mult
@@ -98,7 +136,8 @@ def test_fused_chunk_invariance(rng):
                                rtol=2e-4, atol=2e-5)
 
 
-def test_fused_split_stage2_matches(rng):
+@pytest.mark.parametrize("kw", FRONTS)
+def test_fused_split_stage2_matches(rng, kw):
     """stage2="split" (215-tap quad-rate LPF + audio-rate deemph FIR) is
     numerically equivalent to the folded 775-tap form across chunked calls
     (carry discipline intact for both tails)."""
@@ -109,7 +148,7 @@ def test_fused_split_stage2_matches(rng):
     outs = {}
     for mode in ("folded", "split"):
         init, step, mult = make_wfm_step_fused(1e6, 250e3, 50e3,
-                                               interpret=True, stage2=mode)
+                                               stage2=mode, **kw)
         s = init()
         step_j = jax.jit(step)
         parts = []
@@ -122,3 +161,17 @@ def test_fused_split_stage2_matches(rng):
     err = np.max(np.abs(a - b))
     scale = np.max(np.abs(a)) + 1e-9
     assert err / scale < 2e-4, f"split/folded mismatch {err} vs {scale}"
+
+
+@pytest.mark.gpu
+def test_triton_front_compiled_matches_xla(gpu, rng):
+    """The compiled Triton front (no interpreter) against the XLA front at
+    the WBFM widths."""
+    front = WfmFront(channel_taps(1e6, 250e3), 0.0, 1e6, 4, 0.53)
+    iq = _fm_like_iq(rng, 1 << 20)
+    xq = np.concatenate([np.zeros(front.history, np.complex64), iq])
+    xr, xi = jnp.asarray(xq.real), jnp.asarray(xq.imag)
+    a = np.asarray(jax.jit(lambda r, i: front(r, i, impl="xla"))(xr, xi))
+    b = np.asarray(jax.jit(lambda r, i: front(r, i, impl="triton"))(xr, xi))
+    assert a.shape == b.shape
+    assert np.max(np.abs(a[1:] - b[1:])) / np.max(np.abs(a)) < 2e-4
